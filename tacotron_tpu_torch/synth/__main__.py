@@ -1,0 +1,63 @@
+"""Synthesis CLI:
+
+    python -m tacotron_tpu_torch.synth --random_init "안녕하세요"
+    python -m tacotron_tpu_torch.synth --load_npz weights.npz \
+        --config config.json "text"
+
+Runs on the card; ``--device cpu`` runs on the CPU instead.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from ..config import Config, load_config
+from .synthesizer import Synthesizer
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="synthesize speech")
+    parser.add_argument("text", nargs="+", help="text(s) to synthesize")
+    parser.add_argument("--random_init", action="store_true",
+                        help="use fresh random weights (smoke testing)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of --random_init")
+    parser.add_argument("--load_npz", default=None,
+                        help="flat .npz of '/'-joined flax variable paths")
+    parser.add_argument("--config", default=None,
+                        help="config.json of the run (default: Config())")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda; raises without "
+                             "a card)")
+    parser.add_argument("--sample_path", default="samples")
+    parser.add_argument("--speaker_id", type=int, default=0)
+    parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--no_attention_trim", action="store_true")
+    parser.add_argument("--no_librosa_trim", action="store_true")
+    parser.add_argument("--fast_vocoder", action="store_true",
+                        help="30 momentum Griffin-Lim iterations")
+    args = parser.parse_args(argv)
+
+    if args.random_init == (args.load_npz is not None):
+        parser.error("pass exactly one of --random_init and --load_npz")
+    config = load_config(args.config) if args.config else Config()
+    synth = Synthesizer(device=args.device)
+    if args.random_init:
+        synth.init_random(config, seed=args.seed)
+    else:
+        synth.load_npz(args.load_npz, config)
+
+    results = synth.synthesize(
+        texts=args.text,
+        speaker_ids=[args.speaker_id] * len(args.text),
+        max_steps=args.max_steps,
+        attention_trim=not args.no_attention_trim,
+        librosa_trim=not args.no_librosa_trim,
+        fast_vocoder=args.fast_vocoder)
+    for p in synth.save_results(results, args.sample_path):
+        print(f"[*] saved {p} ({os.path.getsize(p)} bytes)")
+
+
+if __name__ == "__main__":
+    main()
