@@ -6,21 +6,30 @@
 1. Device: requires CUDA, prints the card's name and power limit, turns TF32
    off for matmuls and cuDNN convolutions.
 2. Build: compiles every kernel of ``tacotron_tpu_torch/csrc`` with nvcc for
-   sm_90a, one process per source, all at once.
+   sm_90a, one process per source, all at once (four libraries).
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, with CUDA-event device times (the host's
    launch cost excluded) of the kernel, the plain version and (where one
    exists) a single PyTorch library call; and again at ragged shapes
-   (partial tiles, short stacks, a small geometry).
+   (partial tiles, short stacks, a small geometry, T = 1, N = 1, zero
+   lengths, widths that are not a multiple of 32).
 4. Main path at full width (``Config()``, Deep Voice 2 with two speakers,
    random weights from a seed): ``Synthesizer.synthesize`` on four sentences
    at 50 decode steps with the fast vocoder (200 frames: the fused
-   Griffin-Lim kernel chain) and on two sentences at 200 steps with the
-   classic vocoder (800 frames: matmul_half with the overlap-add kernel).
-   The kernels' launch counters are zeroed before and read after, and the
-   waveforms are checked.  The same weights on the CPU give the same 10-step
-   greedy decode as on the card.
-5. Prints the kernels line, the card line, and last the result line
+   Griffin-Lim kernel chain, call (a)), on two sentences at 200 steps with
+   the classic vocoder (800 frames: matmul_half with the overlap-add kernel,
+   call (b)), and on four sentences at 50 steps with the fast vocoder and
+   ``griffin_lim_impl="pallas"`` (the spectral-step kernel and the
+   overlap-add kernel, call (c)).  The kernels' launch counters are zeroed
+   before each call and read after, and the waveforms are checked.  The
+   same weights on the CPU give the same 10-step greedy decode as on the
+   card.
+5. The fused GRU's path: the encoder CBHG's and the post-net's BiGRU inputs
+   of a full-width decode (four sentences, 50 steps), run through
+   ``bigru_from_params`` (the GRU kernel, counted) and held against the
+   ``BiGRU`` module, with the weight gradients of a sum of squares through
+   the kernel's autograd Function against autograd through the module.
+6. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -106,6 +115,27 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graphed(fn):
+    """``fn`` captured into a CUDA graph: its replay runs the same kernels
+    on the same buffers in one launch, for timing a plain version whose
+    thousands of small launches would outlast any spin ahead of them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor):
+    """(max |got - want|, that over max |want|)."""
+    max_abs = float((got - want).abs().max())
+    return max_abs, max_abs / float(want.abs().max())
+
+
 def check_k1(dev, rng):
     """Fused Griffin-Lim iteration at the reference geometry, B=4, T=200."""
     from tacotron_tpu_torch.config import AudioConfig
@@ -152,6 +182,8 @@ def check_k1(dev, rng):
         "shape": f"B={B} T={T} n_fft={cfg.n_fft} hop={cfg.hop_length}",
         "max_abs_err": max_abs, "max_rel_err": rel,
         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "library_note": "no single PyTorch call computes one Griffin-Lim "
+                        "iteration",
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -216,12 +248,78 @@ def check_k2(dev, rng):
     }
 
 
+def check_k3(dev, rng):
+    """Griffin-Lim spectral step at the "pallas" engine's serving shape:
+    4 utterances x 200 frames = 800 rows, n_fft 2048."""
+    from tacotron_tpu_torch.ops.kernels import griffin_lim
+
+    rows, n_fft = 4 * 200, 2048
+    F = n_fft // 2 + 1
+    frames = torch.from_numpy(
+        rng.standard_normal((rows, n_fft)).astype(np.float32)).to(dev)
+    mag = torch.from_numpy(
+        rng.random((rows, F)).astype(np.float32) ** 1.5).to(dev)
+    got = griffin_lim.spectral_step(frames, mag, n_fft)
+    want = griffin_lim.spectral_step_reference(frames, mag, n_fft)
+    torch.cuda.synchronize()
+    max_abs, rel = rel_err(got, want)
+    # both round the same bf16 frames and spectra; the kernels sum their
+    # f32 products in another order, which can flip single bf16 roundings
+    # of the projected spectra (the JAX kernel's own tolerance)
+    require(torch.isfinite(got).all(), "K3 output not finite")
+    require(rel <= 2e-3, f"K3 disagrees with its plain version: rel {rel}")
+
+    ms = time_ms(lambda: griffin_lim.spectral_step(frames, mag, n_fft))
+    plain_ms = time_ms(lambda: griffin_lim.spectral_step_reference(
+        frames, mag, n_fft))
+    # the four products over the F bins the step needs (the kernels' bin
+    # padding is not counted); each input read once, the output written once
+    flops = 8 * rows * n_fft * F
+    nbytes = (rows * n_fft * 4 + rows * F * 4    # frames, magnitudes (f32)
+              + 4 * n_fft * F * 2                # four DFT matrices (bf16)
+              + rows * n_fft * 4)                # new frames (f32)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {
+        "name": "spectral_step", "route": "cuda",
+        "source": "tacotron_tpu_torch/csrc/griffin_lim.cu",
+        "replaces": "tacotron_tpu/ops/pallas/griffin_lim.py:58",
+        "tpu_kernel": "griffin_lim.py::_kernel via spectral_step",
+        "shape": f"rows={rows} n_fft={n_fft}",
+        "max_abs_err": max_abs, "max_rel_err": rel,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "library_note": "no single PyTorch call computes the spectral step "
+                        "(two DFT products, the phase projection and two "
+                        "inverse products)",
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def gru_inputs(dev, rng, T, N, D, H, lengths=None):
+    """Random [T, N, D] inputs, state, weights (flax layout) and mask."""
+    def arr(shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    x, h0 = arr((T, N, D)), arr((N, H))
+    wg, wc = arr((D + H, 2 * H), 0.1), arr((D + H, H), 0.1)
+    bg, bc = 1.0 + arr((2 * H,), 0.1), arr((H,), 0.1)
+    if lengths is None:
+        mask = torch.ones((T, N), device=dev)
+    else:
+        lens = torch.tensor(lengths, device=dev)
+        mask = (torch.arange(T, device=dev)[:, None] < lens[None]).float()
+    return x, h0, wg, bg, wc, bc, mask
+
+
 def check_edge_shapes(dev, rng) -> int:
-    """Both kernels against their plain versions at ragged shapes: frame
-    counts that leave partial row tiles, stacks shorter than a frame's hop
-    chunks, one item, and a small geometry (n_fft 256, hop 128)."""
+    """Every kernel against its plain version at ragged shapes: frame
+    counts and rows that leave partial tiles, stacks shorter than a frame's
+    hop chunks, one item, a small geometry (n_fft 256, hop 128) and an n_fft
+    that is not a multiple of the tile (254); GRUs with T = 1, N = 1,
+    lengths of 0 and T, and H not a multiple of 32."""
     from tacotron_tpu_torch.config import AudioConfig
-    from tacotron_tpu_torch.ops.kernels import gl_fused, ola
+    from tacotron_tpu_torch.ops.kernels import gl_fused, griffin_lim, gru, ola
 
     small = AudioConfig(num_freq=129, sample_rate=16000, frame_shift_ms=8,
                         frame_length_ms=16)
@@ -248,6 +346,29 @@ def check_edge_shapes(dev, rng) -> int:
         rel = float((got - want).abs().max() / want.abs().max())
         require(rel <= 2e-3, f"K1 at B={B} T={T} n_fft={cfg.n_fft}: {rel}")
         n += 1
+    for rows, n_fft in ((70, 256), (130, 2048), (1, 2048), (33, 254)):
+        frames = torch.from_numpy(rng.standard_normal(
+            (rows, n_fft)).astype(np.float32)).to(dev)
+        mag = torch.from_numpy(rng.random(
+            (rows, n_fft // 2 + 1)).astype(np.float32)).to(dev)
+        _, rel = rel_err(griffin_lim.spectral_step(frames, mag, n_fft),
+                         griffin_lim.spectral_step_reference(frames, mag,
+                                                             n_fft))
+        require(rel <= 2e-3, f"K3 at rows={rows} n_fft={n_fft}: {rel}")
+        n += 1
+    for T, N, D, H, lengths in ((1, 1, 24, 40, [1]), (1, 1, 8, 8, [0]),
+                                (17, 3, 24, 40, [0, 17, 5]),
+                                (9, 2, 7, 37, None)):
+        args = gru_inputs(dev, rng, T, N, D, H, lengths)
+        got = gru.gru_sequence(*args)
+        want = gru.gru_reference_scan(*args)
+        err = float((got - want).abs().max())
+        require(err <= 1e-5, f"K4 at T={T} N={N} D={D} H={H}: {err}")
+        if lengths is not None:
+            for i, length in enumerate(lengths):
+                require(bool((got[length:, i] == 0).all()),
+                        f"K4 emits past length {length}")
+        n += 1
     torch.cuda.synchronize()
     return n
 
@@ -271,6 +392,7 @@ def main_path(dev):
 
     from tacotron_tpu_torch.config import Config
     from tacotron_tpu_torch.ops.kernels.gl_fused import gl_iteration
+    from tacotron_tpu_torch.ops.kernels.griffin_lim import spectral_step
     from tacotron_tpu_torch.ops.kernels.ola import overlap_add_batched
     from tacotron_tpu_torch.synth import Synthesizer
 
@@ -278,41 +400,54 @@ def main_path(dev):
     cfg = base.replace(model=dataclasses.replace(
         base.model, model_type="deepvoice", num_speakers=2))
     synth = Synthesizer(device="cuda").init_random(cfg, seed=0)
+    # the same weights with the "pallas" vocoder engine
+    cfg_c = cfg.replace(audio=dataclasses.replace(
+        cfg.audio, griffin_lim_impl="pallas"))
+    synth_c = Synthesizer(device="cuda").init_random(cfg_c, seed=0)
     sr, hop = cfg.audio.sample_rate, cfg.audio.hop_length
-    results = {}
-
-    gl_iteration.launches = 0
-    overlap_add_batched.launches = 0
-    # (a) the serving setting: 4 sentences, 50 steps (200 frames -> fused
-    # engine), momentum vocoder
-    t0 = time.perf_counter()
-    res_a = synth.synthesize(texts=KOREAN, speaker_ids=[0, 1, 0, 1],
-                             max_steps=50, fast_vocoder=True,
-                             librosa_trim=False)
-    torch.cuda.synchronize()
-    wall_a = time.perf_counter() - t0
-    k1_a, k2_a = gl_iteration.launches, overlap_add_batched.launches
-    # (b) the 200-step rung: 800 frames -> matmul_half + overlap-add kernel
-    t0 = time.perf_counter()
-    res_b = synth.synthesize(texts=KOREAN[:2], speaker_ids=[1, 0],
-                             max_steps=200, librosa_trim=False)
-    torch.cuda.synchronize()
-    wall_b = time.perf_counter() - t0
-    k1, k2 = gl_iteration.launches, overlap_add_batched.launches
-    require(k1_a > 0, "call (a) launched no fused Griffin-Lim kernel")
-    require(k2 - k2_a > 0, "call (b) launched no overlap-add kernel")
-    require(k1 == k1_a, "call (b) should not reach the fused engine")
-
-    audio_a = check_waveforms(res_a, hop, "call (a)") / sr
-    audio_b = check_waveforms(res_b, hop, "call (b)") / sr
-    log(f"[main] call (a): 4 utterances x 50 steps, fast vocoder: "
-        f"{wall_a:.3f} s wall, {audio_a:.3f} s audio, ends {res_a['ends']}, "
-        f"K1 launches {k1_a}, K2 launches {k2_a}")
-    log(f"[main] call (b): 2 utterances x 200 steps, classic vocoder: "
-        f"{wall_b:.3f} s wall, {audio_b:.3f} s audio, ends {res_b['ends']}, "
-        f"K2 launches {k2 - k2_a}")
-    results.update(k1_launches=k1, k2_launches=k2, wall_a=wall_a,
-                   wall_b=wall_b, audio_a=audio_a, audio_b=audio_b)
+    counters = {"K1": gl_iteration, "K2": overlap_add_batched,
+                "K3": spectral_step}
+    calls = {
+        # (a) the serving setting: 4 sentences, 50 steps (200 frames ->
+        # fused engine), momentum vocoder
+        "a": (synth, dict(texts=KOREAN, speaker_ids=[0, 1, 0, 1],
+                          max_steps=50, fast_vocoder=True)),
+        # (b) the 200-step rung: 800 frames -> matmul_half + overlap-add
+        "b": (synth, dict(texts=KOREAN[:2], speaker_ids=[1, 0],
+                          max_steps=200)),
+        # (c) as (a) through the "pallas" engine: spectral step + overlap-add
+        "c": (synth_c, dict(texts=KOREAN, speaker_ids=[0, 1, 0, 1],
+                            max_steps=50, fast_vocoder=True)),
+    }
+    launches, results = {}, {}
+    for name, (s, kw) in calls.items():
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = s.synthesize(librosa_trim=False, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        audio = check_waveforms(res, hop, f"call ({name})") / sr
+        log(f"[main] call ({name}): {len(kw['texts'])} utterances x "
+            f"{kw['max_steps']} steps, engine "
+            f"{s.config.audio.griffin_lim_impl}, fast vocoder "
+            f"{kw.get('fast_vocoder', False)}: {wall:.3f} s wall, "
+            f"{audio:.3f} s audio, ends {res['ends']}, launches "
+            f"{launches[name]}")
+        results.update({f"wall_{name}": wall, f"audio_{name}": audio})
+    la, lb, lc = launches["a"], launches["b"], launches["c"]
+    require(la["K1"] > 0, "call (a) launched no fused Griffin-Lim kernel")
+    require(lb["K2"] > 0, "call (b) launched no overlap-add kernel")
+    require(lb["K1"] == 0, "call (b) should not reach the fused engine")
+    # one spectral step per iteration and vocoder chunk (4 utterances fit
+    # one chunk of 16)
+    chunks = -(-len(KOREAN) // Synthesizer.VOCODER_MAX_BATCH)
+    require(lc["K3"] == 30 * chunks,
+            f"call (c) launched K3 {lc['K3']} times, not 30 x {chunks}")
+    require(lc["K2"] > 0, "call (c) launched no overlap-add kernel")
+    require(lc["K1"] == 0, "call (c) should not reach the fused engine")
+    results.update(launches=launches, synth=synth)
 
     # the same weights on the CPU: a 10-step greedy decode agrees
     cpu = Synthesizer(device="cpu").init_random(cfg, seed=0)
@@ -341,6 +476,119 @@ def main_path(dev):
     return results
 
 
+def check_k4(dev, synth, rng):
+    """The fused GRU's path: capture the inputs of the encoder CBHG's BiGRU
+    (4 sentences, with the speaker's ``encoder_rnn_init``) and of the
+    post-net's BiGRU (200 frames) in a full-width decode, run both through
+    ``bigru_from_params`` with the launch counter zeroed before and read
+    after, and hold them and the weight gradients against the ``BiGRU``
+    module.  Then time one direction at the post-net shape."""
+    from tacotron_tpu_torch.ops.kernels import gru
+    from tacotron_tpu_torch.text import text_to_sequence
+
+    model = synth.model
+    seqs = [text_to_sequence(t, synth.cleaner_names()) for t in KOREAN]
+    bucket = -(-max(len(q) for q in seqs) // 32) * 32
+    ids = np.zeros((len(seqs), bucket), np.int64)
+    for i, q in enumerate(seqs):
+        ids[i, :len(q)] = q
+    captured = {}
+
+    def hook(name):
+        def fn(module, args, kwargs, output):
+            inputs = list(args) + [None] * (3 - len(args))
+            captured[name] = (module, inputs, output.detach().clone())
+        return fn
+
+    handles = [model.encoder_cbhg.bigru.register_forward_hook(
+                   hook("encoder"), with_kwargs=True),
+               model.post_cbhg.bigru.register_forward_hook(
+                   hook("post-net"), with_kwargs=True)]
+    with torch.no_grad():
+        model(torch.from_numpy(ids).to(dev),
+              torch.tensor([len(q) for q in seqs], device=dev),
+              speaker_id=torch.tensor([0, 1, 0, 1], device=dev),
+              max_steps=50)
+    for h in handles:
+        h.remove()
+    require(captured["encoder"][1][2] is not None,
+            "the encoder BiGRU got no initial state")
+
+    gru.gru_sequence.launches = 0
+    with torch.no_grad():
+        outs = {name: gru.bigru_from_params(mod, *inputs)
+                for name, (mod, inputs, _) in captured.items()}
+    launches = gru.gru_sequence.launches
+    require(launches == 4, f"K4 path launched {launches} times, not 4")
+    errs, grad_errs = {}, {}
+    for name, (mod, inputs, want) in captured.items():
+        max_abs, rel = rel_err(outs[name], want)
+        errs[name] = max_abs
+        # f32 on both sides (no TF32); the kernel sums in another order and
+        # the recurrence carries that through every step
+        require(max_abs <= 1e-4, f"K4 at the {name} BiGRU: {max_abs}")
+        params = list(mod.parameters())
+        with torch.enable_grad():
+            g_k = torch.autograd.grad(
+                (gru.bigru_from_params(mod, *inputs) ** 2).sum(), params)
+            g_m = torch.autograd.grad((mod(*inputs) ** 2).sum(), params)
+        grad_errs[name] = max(rel_err(a, b)[1] for a, b in zip(g_k, g_m))
+        require(grad_errs[name] <= 1e-3,
+                f"K4 gradient at the {name} BiGRU: rel {grad_errs[name]}")
+        log(f"[k4] {name} BiGRU {tuple(inputs[0].shape)}: max abs err "
+            f"{max_abs:.3e} (rel {rel:.3e}), weight gradients max rel err "
+            f"{grad_errs[name]:.3e}")
+
+    def one_direction(name):
+        mod, (xs, lengths, init), _ = captured[name]
+        N, T, D = xs.shape
+        cell = mod.fw
+        mask = (torch.ones((T, N), device=dev) if lengths is None else
+                (torch.arange(T, device=dev)[:, None]
+                 < lengths[None]).float())
+        h0 = (torch.zeros((N, cell.features), device=dev) if init is None
+              else init[:, :cell.features].contiguous())
+        return (xs.transpose(0, 1).contiguous(), h0,
+                cell.gates.weight.t().contiguous(), cell.gates.bias.detach(),
+                cell.candidate.weight.t().contiguous(),
+                cell.candidate.bias.detach(), mask)
+
+    with torch.no_grad():
+        args = [a.detach() for a in one_direction("post-net")]
+        ms = time_ms(lambda: gru.gru_sequence(*args))
+        # the plain scan's ~3,000 small launches run from one CUDA graph
+        plain_ms = time_ms(graphed(lambda: gru.gru_reference_scan(*args)))
+        enc_args = [a.detach() for a in one_direction("encoder")]
+        ms_encoder = time_ms(lambda: gru.gru_sequence(*enc_args))
+    T, N, D = args[0].shape
+    H = args[1].shape[1]
+    flops = 2 * T * N * (D + H) * 3 * H
+    nbytes = ((D + H) * 3 * H * 4 + 3 * H * 4      # weights and biases
+              + T * N * D * 4 + N * H * 4 + T * N * 4  # x, h0, mask
+              + T * N * H * 4)                     # outputs
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return {
+        "name": "gru_sequence", "route": "cuda",
+        "source": "tacotron_tpu_torch/csrc/gru.cu",
+        "replaces": "tacotron_tpu/ops/pallas/gru.py:47",
+        "tpu_kernel": "gru.py::_gru_kernel via _gru_pallas_raw / "
+                      "gru_sequence",
+        "shape": f"one direction of the post-net BiGRU: T={T} N={N} D={D} "
+                 f"H={H}",
+        "max_abs_err": max(errs.values()), "errors_by_site": errs,
+        "grad_max_rel_err": grad_errs,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "library_note": "torch.nn.GRU (cuDNN) applies the reset gate after "
+                        "the recurrent product, a different function",
+        "ms_encoder_direction": ms_encoder,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_note": f"the {T} sequential steps set a latency floor this "
+                      f"bound does not count",
+        "flops": flops, "bytes": nbytes, "launches": launches,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -365,18 +613,21 @@ def main() -> int:
                 log(f"[ptxas {name}] {line.strip()}")
 
     rng = np.random.default_rng(0)
-    kernels = [check_k1(dev, rng), check_k2(dev, rng)]
+    kernels = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng)]
     log(f"[kernel] {check_edge_shapes(dev, rng)} ragged shapes agree with "
         f"the plain versions")
+
+    main = main_path(dev)
+    for k, name in zip(kernels, ("K1", "K2", "K3")):
+        k["launches"] = sum(c[name] for c in main["launches"].values())
+        k["launches_by_call"] = {c: v[name]
+                                 for c, v in main["launches"].items()}
+    kernels.append(check_k4(dev, main["synth"], rng))
     for k in kernels:
         log(f"[kernel] {k['name']} {k['shape']}: {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), max abs err "
-            f"{k['max_abs_err']:.3e}, max rel err {k['max_rel_err']:.3e}")
-
-    main = main_path(dev)
-    kernels[0]["launches"] = main["k1_launches"]
-    kernels[1]["launches"] = main["k2_launches"]
+            f"{k['max_abs_err']:.3e}, launches {k['launches']}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -32,8 +32,11 @@ class AudioConfig:
     # Griffin-Lim engine: "auto" resolves to "fused" (the hand-written
     # iteration kernel, ops/kernels/gl_fused.py) on CUDA and to
     # "matmul_half" on the CPU.  Explicit engines: "fused", "matmul_half"
-    # (u/v half-frame DFT as bf16 matmuls) and "fft" (strict float32
-    # torch.fft, the parity anchor).
+    # (u/v half-frame DFT as bf16 matmuls), "matmul_bf16" (the dense DFT
+    # pair as bf16 matmuls), "matmul_split" (the two-stage DFT as bf16
+    # matmuls), "pallas" (the hand-written spectral-step kernel,
+    # ops/kernels/griffin_lim.py; the name is kept so JAX configs load) and
+    # "fft" (strict float32 torch.fft, the parity anchor).
     griffin_lim_impl: str = "auto"
     # Overlap-add inside the batched engines: "pallas" (the hand-written
     # kernel, ops/kernels/ola.py; the name is kept so JAX configs load),

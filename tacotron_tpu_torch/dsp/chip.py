@@ -12,13 +12,20 @@ Engines (``AudioConfig.griffin_lim_impl``):
 - ``"matmul_half"``: u/v half-frame DFT as bf16 matrix products, with the
   overlap-add of ``ops/kernels/ola`` (the CUDA kernel on a CUDA tensor
   unless ``ola_impl="xla"``);
+- ``"matmul_bf16"``: the dense DFT pair as bf16 matrix products, with the
+  plain overlap-add (``ola_impl="pallas"`` is refused, as in JAX);
+- ``"matmul_split"``: the two-stage (Cooley-Tukey) DFT as bf16 matrix
+  products over the full spectrum, with the overlap-add of ``ops/kernels/ola``;
+- ``"pallas"``: the spectral step of ``ops/kernels/griffin_lim`` (the CUDA
+  kernel pair on a CUDA tensor), with the overlap-add of ``ops/kernels/ola``;
 - ``"fft"``: strict float32 ``torch.fft``, the parity anchor.
 
 ``"auto"`` resolves to ``"fused"`` on CUDA and ``"matmul_half"`` on the CPU,
 where the JAX package resolves to its Pallas kernels on the TPU and to
 ``"matmul_half"`` on the CPU.  ``"fused"`` routes decodes longer than
 :func:`~tacotron_tpu_torch.ops.kernels.gl_fused.max_fused_frames` to
-``"matmul_half"``, as in JAX.
+``"matmul_half"``, and ``"matmul_half"`` routes an ``n_fft`` that is not a
+multiple of 4 to ``"matmul_bf16"``, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,13 +37,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels import gl_fused
+from ..ops.kernels import gl_fused, griffin_lim
 from ..ops.kernels.gl_fused import round_bf16
 from ..ops.kernels.ola import (device_constant, overlap_add_batched,
                                overlap_add_reference, window_tensor)
-
-#: explicit engines of the JAX package that this port does not carry yet
-UNPORTED_ENGINES = ("matmul_bf16", "matmul_split", "pallas")
 
 
 def frame_signal(y: torch.Tensor, config) -> torch.Tensor:
@@ -62,6 +66,117 @@ def istft(spec: torch.Tensor, num_samples: int, config) -> torch.Tensor:
     """complex [B, n_frames, n_freq] -> [B, num_samples]."""
     frames = torch.fft.irfft(spec, n=config.n_fft, dim=-1)
     return overlap_add(frames, num_samples, config)
+
+
+@functools.lru_cache(maxsize=4)
+def dft_matrices(n_fft: int):
+    """Real DFT and inverse DFT as dense matrices: forward [n_fft, F]
+    cos/sin, so ``frames @ DFT`` is the rfft; inverse [F, n_fft] with the
+    Hermitian weights folded in, so ``re @ IDFT_RE + im @ IDFT_IM`` is the
+    irfft (F = n_fft // 2 + 1)."""
+    F = n_fft // 2 + 1
+    ang = -2.0 * np.pi * np.arange(n_fft)[:, None] * np.arange(F)[None, :] \
+        / n_fft
+    dft_re = np.cos(ang).astype(np.float32)
+    dft_im = np.sin(ang).astype(np.float32)
+    w = np.full(F, 2.0, np.float32)
+    w[0] = w[-1] = 1.0
+    ang2 = 2.0 * np.pi * np.arange(F)[:, None] * np.arange(n_fft)[None, :] \
+        / n_fft
+    idft_re = (w[:, None] * np.cos(ang2) / n_fft).astype(np.float32)
+    idft_im = (w[:, None] * -np.sin(ang2) / n_fft).astype(np.float32)
+    return dft_re, dft_im, idft_re, idft_im
+
+
+def mirror_full_spectrum(mag: torch.Tensor) -> torch.Tensor:
+    """[R, F = n_fft // 2 + 1] magnitudes -> Hermitian-extended [R, n_fft]."""
+    return torch.cat([mag, mag.flip(-1)[:, 1:-1]], dim=-1)
+
+
+@functools.lru_cache(maxsize=4)
+def split_dft_matrices(n_fft: int, n1: int = 128) -> dict:
+    """Two-stage (Cooley-Tukey) DFT factors for n_fft = n1 * n2: an
+    [n1, n1] stage, an [n2, n1] twiddle and an [n2, n2] stage.  Index split:
+    time n = n2 * i1 + i2, frequency k = k1 + n1 * k2.  The inverse factors
+    carry the opposite sign, with 1 / n_fft folded into the last stage."""
+    assert n_fft % n1 == 0, (n_fft, n1)
+    n2 = n_fft // n1
+    i1 = np.arange(n1)
+    i2 = np.arange(n2)
+    ang1 = -2.0 * np.pi * np.outer(i1, i1) / n1
+    angt = -2.0 * np.pi * np.outer(i2, i1) / n_fft
+    ang2 = -2.0 * np.pi * np.outer(i2, i2) / n2
+    f32 = np.float32
+    return {
+        "n1": n1, "n2": n2,
+        "c1_re": np.cos(ang1).astype(f32), "c1_im": np.sin(ang1).astype(f32),
+        "tw_re": np.cos(angt).astype(f32), "tw_im": np.sin(angt).astype(f32),
+        "c2_re": np.cos(ang2).astype(f32), "c2_im": np.sin(ang2).astype(f32),
+        "ic1_re": np.cos(-ang1).astype(f32),
+        "ic1_im": np.sin(-ang1).astype(f32),
+        "itw_re": np.cos(-angt).astype(f32),
+        "itw_im": np.sin(-angt).astype(f32),
+        "ic2_re": (np.cos(-ang2) / n_fft).astype(f32),
+        "ic2_im": (np.sin(-ang2) / n_fft).astype(f32),
+    }
+
+
+def _split_tensor(n_fft: int, key: str, device) -> torch.Tensor:
+    """A split-DFT factor on ``device``: the stage matrices in bf16, the
+    twiddles in f32."""
+    def make():
+        value = torch.as_tensor(split_dft_matrices(n_fft)[key])
+        return value if "tw" in key else value.to(torch.bfloat16)
+    return device_constant(("split", n_fft, key), make, device)
+
+
+def _split_stage(ar, ai, tw_re, tw_im, R, n1, n2):
+    """Twiddle [R, n2, n1] and regroup to [R * n1, n2] for the second
+    stage."""
+    br = (ar * tw_re - ai * tw_im).transpose(1, 2).reshape(R * n1, n2)
+    bi = (ar * tw_im + ai * tw_re).transpose(1, 2).reshape(R * n1, n2)
+    return br, bi
+
+
+def split_fft(frames: torch.Tensor, n_fft: int):
+    """Real [R, n_fft] -> full complex spectrum (re, im) [R, n_fft] through
+    the two-stage matrix DFT, in natural bin order."""
+    m = split_dft_matrices(n_fft)
+    n1, n2 = m["n1"], m["n2"]
+    R = frames.shape[0]
+    c1_re, c1_im, tw_re, tw_im, c2_re, c2_im = (
+        _split_tensor(n_fft, k, frames.device) for k in
+        ("c1_re", "c1_im", "tw_re", "tw_im", "c2_re", "c2_im"))
+    G = frames.reshape(R, n1, n2).transpose(1, 2).reshape(R * n2, n1)
+    ar = bf16_matmul_f32(G, c1_re).reshape(R, n2, n1)
+    ai = bf16_matmul_f32(G, c1_im).reshape(R, n2, n1)
+    br, bi = _split_stage(ar, ai, tw_re, tw_im, R, n1, n2)
+    xr = bf16_matmul_f32(br, c2_re) - bf16_matmul_f32(bi, c2_im)
+    xi = bf16_matmul_f32(br, c2_im) + bf16_matmul_f32(bi, c2_re)
+    xr = xr.reshape(R, n1, n2).transpose(1, 2).reshape(R, n_fft)
+    xi = xi.reshape(R, n1, n2).transpose(1, 2).reshape(R, n_fft)
+    return xr, xi
+
+
+def split_ifft_real(xr: torch.Tensor, xi: torch.Tensor,
+                    n_fft: int) -> torch.Tensor:
+    """Full complex spectrum (re, im) [R, n_fft] -> the real part of its
+    inverse DFT [R, n_fft] (exact for a Hermitian input)."""
+    m = split_dft_matrices(n_fft)
+    n1, n2 = m["n1"], m["n2"]
+    R = xr.shape[0]
+    ic1_re, ic1_im, itw_re, itw_im, ic2_re, ic2_im = (
+        _split_tensor(n_fft, k, xr.device) for k in
+        ("ic1_re", "ic1_im", "itw_re", "itw_im", "ic2_re", "ic2_im"))
+    Gr = xr.reshape(R, n1, n2).transpose(1, 2).reshape(R * n2, n1)
+    Gi = xi.reshape(R, n1, n2).transpose(1, 2).reshape(R * n2, n1)
+    ar = (bf16_matmul_f32(Gr, ic1_re)
+          - bf16_matmul_f32(Gi, ic1_im)).reshape(R, n2, n1)
+    ai = (bf16_matmul_f32(Gr, ic1_im)
+          + bf16_matmul_f32(Gi, ic1_re)).reshape(R, n2, n1)
+    br, bi = _split_stage(ar, ai, itw_re, itw_im, R, n1, n2)
+    y = bf16_matmul_f32(br, ic2_re) - bf16_matmul_f32(bi, ic2_im)
+    return y.reshape(R, n1, n2).transpose(1, 2).reshape(R, n_fft)
 
 
 @functools.lru_cache(maxsize=4)
@@ -203,6 +318,74 @@ def _griffin_lim_fused_batched(magnitude: torch.Tensor, num_samples: int,
     return gl_fused.center_slice(sig, num_samples, config)
 
 
+def _griffin_lim_matmul(magnitude: torch.Tensor, num_samples: int,
+                        config) -> torch.Tensor:
+    """The dense DFT pair as bf16 matrix products, with the JAX engine's own
+    phase formula (``re / max(1e-8, |z|)``) and the plain overlap-add."""
+    dft_re, dft_im, idft_re, idft_im = griffin_lim.dft_tensors(
+        config.n_fft, magnitude.device)
+
+    def istft_mm(re, im):
+        frames = bf16_matmul(re, idft_re) + bf16_matmul(im, idft_im)
+        return overlap_add_reference(frames, num_samples, config)
+
+    y = istft_mm(magnitude, torch.zeros_like(magnitude))
+
+    def gl_update(y):
+        frames = frame_signal(y, config)
+        re = bf16_matmul(frames, dft_re)
+        im = bf16_matmul(frames, dft_im)
+        amp = torch.clamp(torch.sqrt(re * re + im * im), min=1e-8)
+        return istft_mm(magnitude * re / amp, magnitude * im / amp)
+
+    return gl_loop(gl_update, y, config)
+
+
+def _griffin_lim_split_batched(magnitude: torch.Tensor, num_samples: int,
+                               config) -> torch.Tensor:
+    B, T, _ = magnitude.shape
+    n_fft = config.n_fft
+    mag_full = mirror_full_spectrum(magnitude.reshape(B * T, -1))
+    ola = _ola_fn(config, num_samples, magnitude.device)
+
+    # zero-phase start: the inverse of the real, Hermitian magnitudes
+    frames0 = split_ifft_real(mag_full, torch.zeros_like(mag_full), n_fft)
+    y = ola(frames0.reshape(B, T, n_fft))
+
+    def gl_update(y):
+        frames = frame_signal(y, config).reshape(B * T, n_fft)
+        re, im = split_fft(frames, n_fft)
+        inv_amp = torch.rsqrt(torch.clamp(re * re + im * im, min=1e-16))
+        scale = mag_full * inv_amp
+        new = split_ifft_real(re * scale, im * scale, n_fft)
+        return ola(new.reshape(B, T, n_fft))
+
+    return gl_loop(gl_update, y, config)
+
+
+def _griffin_lim_pallas_batched(magnitude: torch.Tensor, num_samples: int,
+                                config) -> torch.Tensor:
+    """The spectral step of ``ops/kernels/griffin_lim`` on the whole batch's
+    frames folded into one [B * T, n_fft] row matrix per iteration, with
+    framing and the overlap-add around it."""
+    B, T, _ = magnitude.shape
+    n_fft = config.n_fft
+    _, _, idft_re, _ = griffin_lim.dft_tensors(n_fft, magnitude.device)
+    mag_rows = magnitude.reshape(B * T, -1).contiguous()
+    ola = _ola_fn(config, num_samples, magnitude.device)
+
+    # zero-phase start: irfft(mag) == mag @ IDFT_RE
+    frames0 = bf16_matmul_f32(mag_rows, idft_re)
+    y = ola(frames0.reshape(B, T, n_fft))
+
+    def gl_update(y):
+        frames = frame_signal(y, config).reshape(B * T, n_fft)
+        new = griffin_lim.spectral_step(frames, mag_rows, n_fft)
+        return ola(new.reshape(B, T, n_fft))
+
+    return gl_loop(gl_update, y, config)
+
+
 def _griffin_lim_fft(magnitude: torch.Tensor, num_samples: int,
                      config) -> torch.Tensor:
     S = magnitude.to(torch.complex64)
@@ -232,26 +415,32 @@ def resolve_engine(config, n_frames: int, device) -> str:
         impl = "matmul_half"
     if impl == "matmul_half" and config.n_fft % 4 != 0:
         impl = "matmul_bf16"
-    if impl in UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"griffin_lim_impl {impl!r} is not ported yet")
-    if impl not in ("matmul_half", "fft"):
+    if impl in ("pallas", "matmul_split", "matmul_half"):
+        return impl
+    if impl not in ("matmul_bf16", "fft"):
         raise ValueError(f"unknown griffin_lim_impl {impl!r}")
-    if impl == "fft" and config.ola_impl == "pallas":
-        raise ValueError("ola_impl='pallas' is not supported by the 'fft' "
-                         "engine (use matmul_half or ola_impl='auto'/'xla')")
+    if config.ola_impl == "pallas":
+        # the JAX engines are vmapped per item there and cannot take the
+        # batched overlap-add kernel; the port refuses the same configs
+        raise ValueError(
+            f"ola_impl='pallas' is not supported by the '{impl}' engine "
+            f"(use matmul_half/matmul_split/pallas, or ola_impl='auto'/'xla')")
     return impl
+
+
+_ENGINES = {"fused": _griffin_lim_fused_batched,
+            "matmul_half": _griffin_lim_half_batched,
+            "matmul_bf16": _griffin_lim_matmul,
+            "matmul_split": _griffin_lim_split_batched,
+            "pallas": _griffin_lim_pallas_batched,
+            "fft": _griffin_lim_fft}
 
 
 def griffin_lim_batched(magnitude: torch.Tensor, num_samples: int,
                         config) -> torch.Tensor:
     """Phase reconstruction [B, n_frames, n_freq] -> [B, num_samples]."""
     impl = resolve_engine(config, magnitude.shape[1], magnitude.device)
-    if impl == "fused":
-        return _griffin_lim_fused_batched(magnitude, num_samples, config)
-    if impl == "matmul_half":
-        return _griffin_lim_half_batched(magnitude, num_samples, config)
-    return _griffin_lim_fft(magnitude, num_samples, config)
+    return _ENGINES[impl](magnitude, num_samples, config)
 
 
 # ------------------------------------------------------------- scaling chain

@@ -27,7 +27,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
 #: kernel library name -> its source under csrc/
-SOURCES = {"ola": "ola.cu", "gl_fused": "gl_fused.cu"}
+SOURCES = {"ola": "ola.cu", "gl_fused": "gl_fused.cu",
+           "griffin_lim": "griffin_lim.cu", "gru": "gru.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -3,9 +3,11 @@
     python -m tacotron_tpu_torch.synth.profile [--out profile.json]
 
 Builds the full-width Deep Voice 2 model (``Config()``, two speakers, random
-weights from ``--seed``) and, for the two serving rungs that route to the two
-kernels (4 sentences x 50 steps with the fast vocoder: the fused Griffin-Lim
-chain; 2 sentences x 200 steps with the classic vocoder: matmul_half with the
+weights from ``--seed``) and, for the three serving rungs that route to the
+vocoder kernels (4 sentences x 50 steps with the fast vocoder: the fused
+Griffin-Lim chain; 2 sentences x 200 steps with the classic vocoder:
+matmul_half with the overlap-add kernel; 4 sentences x 50 steps with the fast
+vocoder and ``griffin_lim_impl="pallas"``: the spectral-step kernel with the
 overlap-add kernel), measures:
 
 - the wall time of ``synthesize`` (host clock around a synchronized call),
@@ -36,12 +38,15 @@ SENTENCES = ["안녕하세요. 만나서 반갑습니다.",
              "감사합니다, 좋은 하루 되세요!"]
 
 RUNGS = [dict(name="50-step, fast vocoder (fused)", n=4, max_steps=50,
-              fast_vocoder=True),
+              fast_vocoder=True, engine="auto"),
          dict(name="200-step, classic vocoder (matmul_half + OLA)", n=2,
-              max_steps=200, fast_vocoder=False)]
+              max_steps=200, fast_vocoder=False, engine="auto"),
+         dict(name="50-step, fast vocoder (pallas: spectral step + OLA)",
+              n=4, max_steps=50, fast_vocoder=True, engine="pallas")]
 
 OWN_KERNELS = ("gl_frame_uv", "gl_dft_project", "gl_idft_window",
-               "gl_ola_norm", "ola_centered")
+               "gl_ola_norm", "ola_centered", "gl_spectral_dft",
+               "gl_spectral_idft", "gru_input_proj", "gru_recurrent")
 
 
 def _group(name: str) -> str:
@@ -182,9 +187,12 @@ def main(argv=None) -> None:
     base = Config()
     cfg = base.replace(model=dataclasses.replace(
         base.model, model_type="deepvoice", num_speakers=2))
-    synth = Synthesizer(device="cuda").init_random(cfg, seed=args.seed)
     results = []
     for rung in RUNGS:
+        rung_cfg = cfg.replace(audio=dataclasses.replace(
+            cfg.audio, griffin_lim_impl=rung["engine"]))
+        synth = Synthesizer(device="cuda").init_random(rung_cfg,
+                                                       seed=args.seed)
         out = profile_rung(synth, rung, args.repeats)
         print(json.dumps(out), flush=True)
         results.append(out)

@@ -157,10 +157,14 @@ def test_engine_dispatch():
     ref = TorchAudioConfig()
     assert tchip.resolve_engine(ref, 383, "cuda") == "fused"
     assert tchip.resolve_engine(ref, 384, "cuda") == "matmul_half"
-    for impl in tchip.UNPORTED_ENGINES:
-        with pytest.raises(NotImplementedError):
-            tchip.resolve_engine(
-                dataclasses.replace(ref, griffin_lim_impl=impl), 10, "cpu")
+    for impl in ("matmul_bf16", "matmul_split", "pallas"):
+        assert tchip.resolve_engine(
+            dataclasses.replace(ref, griffin_lim_impl=impl), 10,
+            "cpu") == impl
+    with pytest.raises(ValueError):
+        tchip.resolve_engine(dataclasses.replace(
+            ref, griffin_lim_impl="matmul_bf16", ola_impl="pallas"), 10,
+            "cpu")
     with pytest.raises(ValueError):
         tchip.resolve_engine(dataclasses.replace(ref, ola_impl="bogus"),
                              10, "cpu")

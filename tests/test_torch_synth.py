@@ -1,7 +1,8 @@
 """The serving slice as a whole: the port's ``Synthesizer.synthesize``
 against the JAX ``Synthesizer.synthesize`` on the CPU, same weights, same
-texts, through the fused Griffin-Lim engine and through matmul_half with the
-overlap-add (the two kernel paths of the card).
+texts, through the fused Griffin-Lim engine, through matmul_half with the
+overlap-add, through the "pallas" engine (the spectral step) and through the
+dense and split matrix engines.
 
 Tolerances: equal frame ends; alignments 5e-4 (the greedy-decode tolerance
 of the model test); waveforms correlated above 0.999 with a std ratio in
@@ -54,7 +55,9 @@ def _pair(variables, **audio):
 
 @pytest.mark.parametrize("engine,wire,manual", [
     ("fused", "int16", False), ("matmul_half", "int16", False),
-    ("matmul_half", "mulaw8", False), ("matmul_half", "int16", True)])
+    ("matmul_half", "mulaw8", False), ("matmul_half", "int16", True),
+    ("pallas", "int16", False), ("matmul_split", "int16", False),
+    ("matmul_bf16", "int16", False)])
 def test_synthesize_matches_jax(variables, engine, wire, manual):
     js, ts = _pair(variables, griffin_lim_impl=engine)
     kw = dict(texts=TEXTS, speaker_ids=[0, 1, 1], max_steps=4,
