@@ -6,11 +6,17 @@
 1. Device: requires CUDA, prints the card's name and power limit, turns TF32
    off for matmuls and cuDNN convolutions.
 2. Build: compiles every kernel of ``tacotron_tpu_torch/csrc`` with nvcc for
-   sm_90a, one process per source, all at once (four libraries).
+   sm_90a, one process per source, all at once (four libraries), and
+   prints a ``[sass]`` line counting each library's wgmma (``HGMMA``) and
+   TMA-load (``UTMALDG``) instructions; the K1 and K3 libraries must have
+   both.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, with CUDA-event device times (the host's
    launch cost excluded) of the kernel, the plain version and (where one
-   exists) a single PyTorch library call; and again at ragged shapes
+   exists) a single PyTorch library call; for K1 and K3 also the time of
+   their bf16 products through ``torch.matmul`` at the same shapes
+   (``gemm_library_ms``, a yardstick only) and the achieved TFLOP/s; and
+   again at ragged shapes
    (partial tiles, short stacks, a small geometry, T = 1, N = 1, zero
    lengths, widths that are not a multiple of 32).
 4. Main path at full width (``Config()``, Deep Voice 2 with two speakers,
@@ -130,6 +136,29 @@ def graphed(fn):
     return graph.replay
 
 
+def bf16_randn(rng, shape, dev) -> torch.Tensor:
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+
+
+def sass_counts(names) -> dict:
+    """{library: {"HGMMA": n, "UTMALDG": n}}: the wgmma and TMA-load
+    instructions in each built library's SASS (cuobjdump --dump-sass)."""
+    from pathlib import Path
+
+    from tacotron_tpu_torch.ops.kernels import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    counts = {}
+    for name in names:
+        sass = subprocess.run(
+            [str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
+            check=True, capture_output=True, text=True, timeout=300).stdout
+        counts[name] = {op: sum(line.count(op) for line in sass.splitlines())
+                        for op in ("HGMMA", "UTMALDG")}
+    return counts
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor):
     """(max |got - want|, that over max |want|)."""
     max_abs = float((got - want).abs().max())
@@ -168,6 +197,14 @@ def check_k1(dev, rng):
     M = cfg.n_fft // 2
     ne, no = M // 2 + 1, M // 2
     NBa = sig.shape[1]
+    rows, NE, NO = B * Ta, mag_e_s.shape[2], mag_o_s.shape[2]
+    # the kernels' four bf16 products through cuBLAS, at the same shapes
+    we_t, wo_t, we, wo = gl_fused._kernel_matrices(cfg.n_fft, dev)
+    u, v = bf16_randn(rng, (rows, M), dev), bf16_randn(rng, (rows, M), dev)
+    xe = bf16_randn(rng, (rows, 2 * NE), dev)
+    xo = bf16_randn(rng, (rows, 2 * NO), dev)
+    gemm_library_ms = time_ms(lambda: (u @ we_t.T, v @ wo_t.T, xe @ we.T,
+                                       xo @ wo.T))
     flops = 8 * B * T * M * (ne + no)
     nbytes = (2 * B * NBa * cfg.hop_length * 4      # signal in and out
               + B * T * (ne + no) * 4               # target magnitudes
@@ -184,6 +221,11 @@ def check_k1(dev, rng):
         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
         "library_note": "no single PyTorch call computes one Griffin-Lim "
                         "iteration",
+        "gemm_library_ms": gemm_library_ms,
+        "gemm_library_note": "the four bf16 products (forward u and v, "
+                             "inverse spectra) through torch.matmul at the "
+                             "kernels' shapes",
+        "tflops": flops / ms / 1e9,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -272,6 +314,11 @@ def check_k3(dev, rng):
     ms = time_ms(lambda: griffin_lim.spectral_step(frames, mag, n_fft))
     plain_ms = time_ms(lambda: griffin_lim.spectral_step_reference(
         frames, mag, n_fft))
+    # the kernels' two bf16 products through cuBLAS, at the same shapes
+    fwd_t, inv_t = griffin_lim._kernel_tensors(n_fft, dev)
+    fb = bf16_randn(rng, (rows, fwd_t.shape[1]), dev)
+    spec = bf16_randn(rng, (rows, fwd_t.shape[0]), dev)
+    gemm_library_ms = time_ms(lambda: (fb @ fwd_t.T, spec @ inv_t.T))
     # the four products over the F bins the step needs (the kernels' bin
     # padding is not counted); each input read once, the output written once
     flops = 8 * rows * n_fft * F
@@ -290,6 +337,11 @@ def check_k3(dev, rng):
         "library_note": "no single PyTorch call computes the spectral step "
                         "(two DFT products, the phase projection and two "
                         "inverse products)",
+        "gemm_library_ms": gemm_library_ms,
+        "gemm_library_note": "the two bf16 products (forward frames, "
+                             "inverse spectra) through torch.matmul at the "
+                             "kernels' shapes",
+        "tflops": flops / ms / 1e9,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -612,6 +664,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[ptxas {name}] {line.strip()}")
 
+    sass = sass_counts(_build.SOURCES)
+    log(f"[sass] {json.dumps(sass)}")
+    for name in ("gl_fused", "griffin_lim"):
+        require(sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0,
+                f"lib{name}.so issues no wgmma or no TMA load: {sass[name]}")
+
     rng = np.random.default_rng(0)
     kernels = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng)]
     log(f"[kernel] {check_edge_shapes(dev, rng)} ragged shapes agree with "
@@ -624,10 +682,12 @@ def main() -> int:
                                  for c, v in main["launches"].items()}
     kernels.append(check_k4(dev, main["synth"], rng))
     for k in kernels:
+        gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
+                f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")
         log(f"[kernel] {k['name']} {k['shape']}: {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), max abs err "
-            f"{k['max_abs_err']:.3e}, launches {k['launches']}")
+            f"{k['max_abs_err']:.3e}, launches {k['launches']}{gemm}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

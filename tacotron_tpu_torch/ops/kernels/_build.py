@@ -8,8 +8,8 @@ committed) at first use and are rebuilt when a source or a shared header in
 out-of-date source, all at once, and waits for all of them.
 
 Every C entry point takes device pointers and the CUDA stream as
-``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises on a
-nonzero value.
+``c_void_p`` and returns ``cudaGetLastError()`` (or, for the GEMM kernels,
+a tensor-map encoding error); :func:`check` raises on a nonzero value.
 """
 
 from __future__ import annotations
@@ -106,7 +106,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: what a C entry point returns, above this, when a TMA tensor map cannot be
+#: encoded (wg::MAP_ERROR in csrc/wgmma_gemm.cuh): MAP_ERROR + the CUresult
+MAP_ERROR = 100000
+
+
 def check(err: int, what: str) -> None:
+    if err >= MAP_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"CUDA launch of {what} failed with error {err}")
 

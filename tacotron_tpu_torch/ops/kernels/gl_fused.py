@@ -29,11 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .layouts import BIN_TILE, interleave_bins, round_up
 from .ola import (chunks_per_frame, device_constant, ola_blocks,
                   window_sumsquare_f64, window_tensor)
 
-#: bins are padded to the kernel's 64-column tile with zero magnitude
-BIN_TILE = 64
 #: frame rows are padded to a multiple of 8 (the JAX layout, kept so the
 #: carried signal has the same block count as the reference engine)
 ROW_ALIGN = 8
@@ -44,20 +43,17 @@ LANE = 128
 # The JAX kernel keeps a whole item's iteration in the TPU's 16 MB scoped
 # vector memory and routes longer decodes to the matmul_half engine.  The
 # port keeps that routing (same formula, same constants) so each decode goes
-# to the same engine as in JAX; it is not a limit of the CUDA kernels and
-# the first performance pass on this kernel may lift it.
+# to the same engine as in JAX.  It is not a limit of the CUDA kernels, but
+# lifting it would send long decodes to another engine than JAX does, so
+# their outputs would no longer match the reference: it stays.
 ROUTING_BUDGET_BYTES = 14 * 1024 * 1024
 ROUTING_BYTES_PER_FRAME = 26_000
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
 
 
 def _routing_estimate(n_fft: int, n_frames: int) -> int:
     M = n_fft // 2
     ne, no = M // 2 + 1, M // 2
-    matrices = 2 * 2 * M * (_round_up(ne, LANE) + _round_up(no, LANE))
+    matrices = 2 * 2 * M * (round_up(ne, LANE) + round_up(no, LANE))
     return matrices + n_frames * ROUTING_BYTES_PER_FRAME
 
 
@@ -84,7 +80,7 @@ def fwd_matrices(n_fft: int):
     zero-padded to BIN_TILE) and the inverse Hermitian weights we/wo."""
     M = n_fft // 2
     ne, no = M // 2 + 1, M // 2
-    nep, nop = _round_up(ne, BIN_TILE), _round_up(no, BIN_TILE)
+    nep, nop = round_up(ne, BIN_TILE), round_up(no, BIN_TILE)
     n = np.arange(M)[:, None]
     ang_e = 2.0 * np.pi * n * (2 * np.arange(ne)[None, :]) / n_fft
     ang_o = 2.0 * np.pi * n * (2 * np.arange(no)[None, :] + 1) / n_fft
@@ -103,14 +99,34 @@ def fwd_matrices(n_fft: int):
     return e_r, e_i, o_r, o_i, we, wo
 
 
-def _matrices(n_fft: int, device, dtype):
-    """The four DFT matrices on ``device``, rounded to bf16 (as bf16, or as
-    f32 holding bf16 values for the reference)."""
+def _matrices(n_fft: int, device):
+    """The four DFT matrices on ``device`` for the plain versions: f32
+    holding their bf16 roundings."""
     def make(i):
         return lambda: torch.as_tensor(fwd_matrices(n_fft)[i]).to(
-            torch.bfloat16).to(dtype)
-    return tuple(device_constant(("gl_mat", n_fft, i, str(dtype)), make(i),
-                                 device) for i in range(4))
+            torch.bfloat16).float()
+    return tuple(device_constant(("gl_mat", n_fft, i), make(i), device)
+                 for i in range(4))
+
+
+@functools.lru_cache(maxsize=4)
+def kernel_matrices(n_fft: int):
+    """The kernels' layouts of the forward matrices (f32): the interleaved
+    even and odd matrices we [M, 2 NE], wo [M, 2 NO] (per 64-bin tile, the
+    cosine columns then the sine columns; the inverse GEMM's B^T), and
+    their transposes we_t [2 NE, M], wo_t [2 NO, M] (the forward GEMM's
+    K-major B)."""
+    e_r, e_i, o_r, o_i, _, _ = fwd_matrices(n_fft)
+    we, wo = interleave_bins(e_r, e_i), interleave_bins(o_r, o_i)
+    return (np.ascontiguousarray(we.T), np.ascontiguousarray(wo.T), we, wo)
+
+
+def _kernel_matrices(n_fft: int, device):
+    """:func:`kernel_matrices` on ``device`` in bf16."""
+    return tuple(device_constant(
+        ("gl_kmat", n_fft, i), lambda i=i: torch.as_tensor(
+            kernel_matrices(n_fft)[i]).to(torch.bfloat16), device)
+        for i in range(4))
 
 
 @functools.lru_cache(maxsize=8)
@@ -149,7 +165,7 @@ def prepare_magnitudes(magnitude: torch.Tensor, n_fft: int):
 
 def frame_rows(n_frames: int) -> int:
     """Ta: the frame axis of the magnitudes, padded to ROW_ALIGN."""
-    return _round_up(n_frames, ROW_ALIGN)
+    return round_up(n_frames, ROW_ALIGN)
 
 
 def signal_blocks_layout(n_frames: int, config):
@@ -158,7 +174,7 @@ def signal_blocks_layout(n_frames: int, config):
     K0 = chunks_per_frame(n_fft, hop)
     out_len = n_fft + hop * (n_frames - 1)
     ta = frame_rows(n_frames)
-    nba = _round_up(max(-(-out_len // hop), ta + K0 - 1), ROW_ALIGN)
+    nba = round_up(max(-(-out_len // hop), ta + K0 - 1), ROW_ALIGN)
     return nba, out_len
 
 
@@ -174,7 +190,7 @@ def initial_signal_blocks(mag_e_s: torch.Tensor, mag_o_s: torch.Tensor,
     n_fft, hop = config.n_fft, config.hop_length
     B, T, _ = mag_e_s.shape
     NBa, _ = signal_blocks_layout(n_frames, config)
-    e_r, _, o_r, _ = _matrices(n_fft, mag_e_s.device, torch.float32)
+    e_r, _, o_r, _ = _matrices(n_fft, mag_e_s.device)
     u2 = round_bf16(mag_e_s) @ e_r.T
     v2 = round_bf16(mag_o_s) @ o_r.T
     frames = torch.cat([u2 + v2, u2 - v2], dim=-1) \
@@ -201,8 +217,8 @@ def _check_inputs(sig_blocks, mag_e_s, mag_o_s, n_frames, config):
         raise ValueError("sig_blocks and magnitudes must be 3-D")
     B, NBa, h = sig_blocks.shape
     Ta = mag_e_s.shape[1]
-    nep = _round_up(n_fft // 4 + 1, BIN_TILE)
-    nop = _round_up(n_fft // 4, BIN_TILE)
+    nep = round_up(n_fft // 4 + 1, BIN_TILE)
+    nop = round_up(n_fft // 4, BIN_TILE)
     if h != hop or mag_e_s.shape != (B, Ta, nep) \
             or mag_o_s.shape != (B, Ta, nop) or Ta < n_frames \
             or NBa < Ta + chunks_per_frame(n_fft, hop) - 1 \
@@ -228,7 +244,7 @@ def gl_iteration_reference(sig_blocks: torch.Tensor, mag_e_s: torch.Tensor,
     M = n_fft // 2
     Ta = mag_e_s.shape[1]
     device = sig_blocks.device
-    e_r, e_i, o_r, o_i = _matrices(n_fft, device, torch.float32)
+    e_r, e_i, o_r, o_i = _matrices(n_fft, device)
     win = window_tensor(config, device)
 
     flat = sig_blocks.reshape(B, NBa * hop)
@@ -255,8 +271,8 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
             "gl_frame_uv": [P] * 4 + [I] * 5 + [P],
-            "gl_dft_project": [P] * 12 + [I] * 4 + [P],
-            "gl_idft_window": [P] * 10 + [I] * 4 + [P],
+            "gl_dft_project": [P] * 8 + [I] * 4 + [P],
+            "gl_idft_window": [P] * 6 + [I] * 4 + [P],
             "gl_ola_norm": [P] * 3 + [I] * 5 + [P],
         }
         for name, argtypes in sigs.items():
@@ -281,6 +297,8 @@ def gl_iteration(sig_blocks: torch.Tensor, mag_e_s: torch.Tensor,
     if sig_blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {sig_blocks.device}")
     _check_inputs(sig_blocks, mag_e_s, mag_o_s, n_frames, config)
+    if any(t.data_ptr() % 16 for t in (mag_e_s, mag_o_s)):
+        raise ValueError("the magnitudes must be 16-byte aligned")
     B, NBa, hop = sig_blocks.shape
     Ta, NE = mag_e_s.shape[1:]
     NO = mag_o_s.shape[2]
@@ -291,17 +309,15 @@ def gl_iteration(sig_blocks: torch.Tensor, mag_e_s: torch.Tensor,
     lib = _lib()
     stream = _build.stream_ptr(device)
     ptr = _build.ptr
-    e_r, e_i, o_r, o_i = _matrices(n_fft, device, torch.bfloat16)
+    we_t, wo_t, we, wo = _kernel_matrices(n_fft, device)
     win = window_tensor(config, device)
     inv_norm = _inv_norm(n_frames, config, NBa, device)
 
     bf16 = torch.bfloat16
     u = torch.empty((rows, M), dtype=bf16, device=device)
     v = torch.empty((rows, M), dtype=bf16, device=device)
-    xe_r = torch.empty((rows, NE), dtype=bf16, device=device)
-    xe_i = torch.empty((rows, NE), dtype=bf16, device=device)
-    xo_r = torch.empty((rows, NO), dtype=bf16, device=device)
-    xo_i = torch.empty((rows, NO), dtype=bf16, device=device)
+    xe = torch.empty((rows, 2 * NE), dtype=bf16, device=device)
+    xo = torch.empty((rows, 2 * NO), dtype=bf16, device=device)
     frames = torch.empty((rows, n_fft), dtype=torch.float32, device=device)
     out = torch.empty_like(sig_blocks)
 
@@ -310,14 +326,12 @@ def gl_iteration(sig_blocks: torch.Tensor, mag_e_s: torch.Tensor,
         stream), "gl_frame_uv")
     gl_iteration.launches += 1
     _build.check(lib.gl_dft_project(
-        ptr(u), ptr(v), ptr(e_r), ptr(e_i), ptr(o_r), ptr(o_i),
-        ptr(mag_e_s), ptr(mag_o_s), ptr(xe_r), ptr(xe_i), ptr(xo_r),
-        ptr(xo_i), rows, M, NE, NO, stream), "gl_dft_project")
+        ptr(u), ptr(v), ptr(we_t), ptr(wo_t), ptr(mag_e_s), ptr(mag_o_s),
+        ptr(xe), ptr(xo), rows, M, NE, NO, stream), "gl_dft_project")
     gl_iteration.launches += 1
     _build.check(lib.gl_idft_window(
-        ptr(xe_r), ptr(xe_i), ptr(xo_r), ptr(xo_i), ptr(e_r), ptr(e_i),
-        ptr(o_r), ptr(o_i), ptr(win), ptr(frames), rows, M, NE, NO, stream),
-        "gl_idft_window")
+        ptr(xe), ptr(xo), ptr(we), ptr(wo), ptr(win), ptr(frames), rows, M,
+        NE, NO, stream), "gl_idft_window")
     gl_iteration.launches += 1
     _build.check(lib.gl_ola_norm(
         ptr(frames), ptr(inv_norm), ptr(out), B, Ta, n_fft, hop, NBa * hop,

@@ -1,5 +1,5 @@
-"""The Griffin-Lim spectral step: the CUDA kernel pair
-(``csrc/griffin_lim.cu``) and its plain PyTorch version.
+"""The Griffin-Lim spectral step: the CUDA kernels (``csrc/griffin_lim.cu``)
+and their plain PyTorch version.
 
 Replaces the TPU kernel ``ops/pallas/griffin_lim.py::spectral_step`` (body
 ``_kernel``) of the JAX package, the inner step of the ``"pallas"``
@@ -28,15 +28,12 @@ import torch
 
 from . import _build
 from .gl_fused import round_bf16
+from .layouts import interleave_bins, round_up
 from .ola import device_constant
 
 #: bins and the n_fft axis are padded to the kernels' 64-column tile; the
 #: padded matrix rows and columns are zero, so padded bins carry nothing
 TILE = 64
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
 
 
 @functools.lru_cache(maxsize=4)
@@ -47,28 +44,42 @@ def padded_dft_matrices(n_fft: int):
     from ...dsp.chip import dft_matrices
     dre, dim, ire, iim = dft_matrices(n_fft)
     F = dre.shape[1]
-    Fp, Np = _round_up(F, TILE), _round_up(n_fft, TILE)
+    Fp, Np = round_up(F, TILE), round_up(n_fft, TILE)
     fwd = ((0, Np - n_fft), (0, Fp - F))
     inv = ((0, Fp - F), (0, Np - n_fft))
     return (np.pad(dre, fwd), np.pad(dim, fwd), np.pad(ire, inv),
             np.pad(iim, inv))
 
 
-def _dense_matrices(n_fft: int, padded: bool):
-    if padded:
-        return padded_dft_matrices(n_fft)
-    from ...dsp.chip import dft_matrices
-    return dft_matrices(n_fft)
+@functools.lru_cache(maxsize=4)
+def kernel_matrices(n_fft: int):
+    """The kernels' layouts of the padded matrices (f32): fwd_t [2 Fp, Np],
+    the transpose of the interleaved forward matrix [Np, 2 Fp] (per 64-bin
+    tile, the DFT_RE columns then the DFT_IM columns; the forward GEMM's
+    K-major B), and inv_t [Np, 2 Fp], the transpose of the inverse matrices
+    stacked to match the interleaved spectra (the inverse GEMM's K-major
+    B)."""
+    dre, dim, ire, iim = padded_dft_matrices(n_fft)
+    fwd = interleave_bins(dre, dim)
+    return np.ascontiguousarray(fwd.T), interleave_bins(ire.T, iim.T)
 
 
-def dft_tensors(n_fft: int, device, dtype=torch.bfloat16,
-                padded: bool = False):
+def dft_tensors(n_fft: int, device, dtype=torch.bfloat16):
     """The four dense DFT matrices on ``device``, rounded to bf16 (as bf16,
-    or as f32 holding bf16 values), unpadded or padded for the kernels."""
+    or as f32 holding bf16 values)."""
+    from ...dsp.chip import dft_matrices
     return tuple(device_constant(
-        ("dense", n_fft, i, str(dtype), padded),
-        lambda i=i: torch.as_tensor(_dense_matrices(n_fft, padded)[i]).to(
+        ("dense", n_fft, i, str(dtype)),
+        lambda i=i: torch.as_tensor(dft_matrices(n_fft)[i]).to(
             torch.bfloat16).to(dtype), device) for i in range(4))
+
+
+def _kernel_tensors(n_fft: int, device):
+    """:func:`kernel_matrices` on ``device`` in bf16."""
+    return tuple(device_constant(
+        ("dense_kernel", n_fft, i), lambda i=i: torch.as_tensor(
+            kernel_matrices(n_fft)[i]).to(torch.bfloat16), device)
+        for i in range(2))
 
 
 def spectral_step_reference(frames: torch.Tensor, magnitude: torch.Tensor,
@@ -90,7 +101,7 @@ def _lib():
     lib = _build.load("griffin_lim")
     fn = lib.gl_spectral_step
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -100,9 +111,9 @@ def spectral_step(frames: torch.Tensor, magnitude: torch.Tensor,
                   n_fft: int) -> torch.Tensor:
     """One spectral step of Griffin-Lim on [rows, n_fft] f32 frames and
     [rows, n_fft // 2 + 1] f32 magnitudes -> [rows, n_fft] f32.  CUDA
-    tensors go through the forward and inverse kernels of
-    ``csrc/griffin_lim.cu`` (``spectral_step.launches`` counts each call);
-    CPU tensors through :func:`spectral_step_reference`."""
+    tensors go through the cast, forward and inverse kernels of
+    ``csrc/griffin_lim.cu`` in one C call (``spectral_step.launches``
+    counts each call); CPU tensors through :func:`spectral_step_reference`."""
     if frames.device.type == "cpu":
         return spectral_step_reference(frames, magnitude, n_fft)
     if frames.device.type != "cuda":
@@ -120,17 +131,17 @@ def spectral_step(frames: torch.Tensor, magnitude: torch.Tensor,
                              f"{frames.device}")
     rows = frames.shape[0]
     device = frames.device
-    Fp, Np = _round_up(F, TILE), _round_up(n_fft, TILE)
-    dre, dim, ire, iim = dft_tensors(n_fft, device, padded=True)
-    sre = torch.empty((rows, Fp), dtype=torch.bfloat16, device=device)
-    sim = torch.empty((rows, Fp), dtype=torch.bfloat16, device=device)
+    Fp, Np = round_up(F, TILE), round_up(n_fft, TILE)
     out = torch.empty((rows, n_fft), dtype=torch.float32, device=device)
     if rows == 0:
         return out
+    fwd_t, inv_t = _kernel_tensors(n_fft, device)
+    fb = torch.empty((rows, Np), dtype=torch.bfloat16, device=device)
+    spec = torch.empty((rows, 2 * Fp), dtype=torch.bfloat16, device=device)
     ptr = _build.ptr
     _build.check(_lib().gl_spectral_step(
-        ptr(frames), ptr(magnitude), ptr(dre), ptr(dim), ptr(ire), ptr(iim),
-        ptr(sre), ptr(sim), ptr(out), rows, n_fft, F, Np, Fp,
+        ptr(frames), ptr(magnitude), ptr(fwd_t), ptr(inv_t), ptr(fb),
+        ptr(spec), ptr(out), rows, n_fft, F, Np, Fp,
         _build.stream_ptr(device)), "gl_spectral_step")
     spectral_step.launches += 1
     return out

@@ -45,8 +45,9 @@ RUNGS = [dict(name="50-step, fast vocoder (fused)", n=4, max_steps=50,
               n=4, max_steps=50, fast_vocoder=True, engine="pallas")]
 
 OWN_KERNELS = ("gl_frame_uv", "gl_dft_project", "gl_idft_window",
-               "gl_ola_norm", "ola_centered", "gl_spectral_dft",
-               "gl_spectral_idft", "gru_input_proj", "gru_recurrent")
+               "gl_ola_norm", "ola_centered", "gl_spectral_cast",
+               "gl_spectral_dft", "gl_spectral_idft", "gru_input_proj",
+               "gru_recurrent")
 
 
 def _group(name: str) -> str:
