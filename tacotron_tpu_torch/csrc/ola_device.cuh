@@ -1,5 +1,5 @@
-// Overlap-add of one output sample, shared by the overlap-add kernel
-// (ola.cu) and the last stage of the Griffin-Lim iteration (gl_fused.cu).
+// Overlap-add of one output sample, for the last stage of the Griffin-Lim
+// iteration (gl_fused.cu).
 //
 // Sample p of the full overlap-added signal sums sample (p - t*hop) of every
 // frame t that covers it.  Hop block b = p / hop collects chunk j of frame

@@ -15,7 +15,10 @@ in flax's layout, ``wg`` [D + H, 2H] and ``wc`` [D + H, H]; the adapters
 below transpose ``nn.Linear``'s [out, in].
 
 :func:`gru_sequence` is differentiable: its forward launches the kernel for
-CUDA tensors (and runs :func:`gru_reference_scan` for CPU tensors), its
+CUDA tensors, on the route :func:`cluster_plan` picks from the shapes (a
+thread-block cluster holding the recurrent weights in shared memory, or,
+above H = 512, one block per row streaming them from L2), and runs
+:func:`gru_reference_scan` for CPU tensors; its
 backward recomputes through :func:`gru_reference_scan` under autograd, as
 the JAX package's ``custom_vjp`` does.  The model's CBHG keeps
 ``ops/rnn.py::BiGRU``; :func:`bigru_from_params` is the opt-in entry point
@@ -25,7 +28,7 @@ that runs a ``BiGRU``'s weights through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, Optional, Union
+from typing import Mapping, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -57,19 +60,124 @@ def gru_reference_scan(x_tnd: torch.Tensor, h0: torch.Tensor,
     return torch.stack(ys)
 
 
+#: batch rows one cluster serves at most (CL_ROWS in csrc/gru.cu)
+CLUSTER_ROWS = 4
+#: blocks per cluster at most: the H100's largest (non-portable) cluster
+CLUSTER_MAX_BLOCKS = 16
+#: the shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: the least shared memory a cluster block is launched with: two blocks of
+#: 116 KB do not fit one SM's 228 KB, so every block of a cluster gets an SM
+#: of its own
+SMEM_ONE_BLOCK_PER_SM = 118_784
+#: threads of the streaming route's one block per row (REC_THREADS)
+STREAMING_THREADS = 1024
+
+
+class ClusterPlan(NamedTuple):
+    """How ``csrc/gru.cu`` runs the recurrence of an [N, H] state.
+
+    ``route`` is "cluster" (a cluster of ``cluster`` blocks per group of up
+    to ``rows`` batch rows; block k owns units [k * hs, (k + 1) * hs) and
+    keeps their recurrent weight columns in its shared memory) or
+    "streaming" (one block per row, ``hs`` = H, reading the recurrent
+    weights through L2 every step).  ``smem_bytes`` is the dynamic shared
+    memory each block is launched with.  ``cluster``, ``hs`` and ``rows``
+    are C, Hs and R of the source note in ``csrc/gru.cu``."""
+
+    route: str
+    cluster: int
+    hs: int
+    rows: int
+    smem_bytes: int
+
+
+def cluster_layout_bytes(H: int, cluster: int) -> int:
+    """Shared memory a cluster block needs (the layout of
+    ``gru_cluster_kernel``): its r, u and candidate columns over the depth
+    rounded up to 32, the double-buffered state and r * h of four rows, and
+    its u gates; the units per block rounded up to 4."""
+    hs = -(-H // cluster)
+    hs_pad = -(-hs // 4) * 4
+    hk = -(-H // 32) * 32
+    return 4 * (3 * hs_pad * hk + 12 * hk + 4 * hs_pad)
+
+
+def streaming_bytes(H: int) -> int:
+    """Shared memory of the streaming route's block (the depth slices of
+    ``gru_recurrence`` in ``csrc/gru.cu``): h, h', r * h, the gates and the
+    partial sums."""
+    nsl_g = 1 if 2 * H >= STREAMING_THREADS else STREAMING_THREADS // (2 * H)
+    nsl_c = 1 if H >= STREAMING_THREADS else STREAMING_THREADS // H
+    return 4 * (5 * H + max(nsl_g * 2 * H, nsl_c * H))
+
+
+def cluster_plan(N: int, H: int) -> ClusterPlan:
+    """The route, from the shapes alone: the cluster route wherever a
+    block's columns fit its shared memory, the streaming route above that
+    (H > 512, where the depth also outgrows the kernel's 16 chunks of 32).
+    Blocks per cluster: one per 16 units, at most 16, so a block keeps 16
+    units where it can.  Over 16 blocks each block's products take half as
+    long as over 8 and each exchange of state a little longer; at H = 256
+    the 16 are faster (PERF.md)."""
+    cluster = min(CLUSTER_MAX_BLOCKS, max(1, -(-H // 16)))
+    need = cluster_layout_bytes(H, cluster)
+    if need > SMEM_LIMIT:
+        return ClusterPlan("streaming", 1, H, 1, streaming_bytes(H))
+    return ClusterPlan("cluster", cluster, -(-H // cluster),
+                       max(1, min(CLUSTER_ROWS, N)),
+                       max(need, SMEM_ONE_BLOCK_PER_SM))
+
+
 def _lib():
     lib = _build.load("gru")
-    fn = lib.gru_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.gru_recurrence.argtypes is None:
+        lib.gru_projection.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.gru_projection.restype = ctypes.c_int
+        lib.gru_recurrence.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.gru_recurrence.restype = ctypes.c_int
     return lib
+
+
+def gru_input_projection(x, wg, bg, wc, bc):
+    """The input halves of every step on the card, biases included:
+    (gx [T, N, 2H], cx [T, N, H]).  Contiguous float32 CUDA tensors, shapes
+    checked by the caller."""
+    T, N, D = x.shape
+    H = bc.shape[0]
+    gx = torch.empty((T, N, 2 * H), dtype=torch.float32, device=x.device)
+    cx = torch.empty((T, N, H), dtype=torch.float32, device=x.device)
+    ptr = _build.ptr
+    _build.check(_lib().gru_projection(
+        ptr(x), ptr(wg), ptr(bg), ptr(wc), ptr(bc), ptr(gx), ptr(cx), T, N,
+        D, H, _build.stream_ptr(x.device)), "gru_projection")
+    return gx, cx
+
+
+def gru_recurrence(gx, cx, h0, wg, wc, mask, products: bool = True):
+    """The recurrence over the input halves on the card, on the route
+    :func:`cluster_plan` picks: [T, N, H].  ``products=False`` runs the
+    cluster schedule with its products compiled out (zero sums), to time
+    its latency floor; it is refused on the streaming route."""
+    T, N, H2 = gx.shape
+    H = H2 // 2
+    D = wg.shape[0] - H
+    plan = cluster_plan(N, H)
+    blocks = plan.cluster if plan.route == "cluster" else 0
+    out = torch.empty((T, N, H), dtype=torch.float32, device=gx.device)
+    ptr = _build.ptr
+    _build.check(_lib().gru_recurrence(
+        ptr(gx), ptr(cx), ptr(h0), ptr(wg), ptr(wc), ptr(mask), ptr(out), T,
+        N, D, H, blocks, plan.hs, plan.rows, plan.smem_bytes, int(products),
+        _build.stream_ptr(gx.device)), "gru_recurrence")
+    return out
 
 
 def _gru_kernel(x, h0, wg, bg, wc, bc, mask) -> torch.Tensor:
     """Launch ``csrc/gru.cu`` on CUDA tensors: the input projections of
-    every step, then the recurrence, one block per row."""
+    every step, then the recurrence on the route of :func:`cluster_plan`."""
     T, N, D = x.shape
     H = h0.shape[1]
     if h0.shape != (N, H) or wg.shape != (D + H, 2 * H) \
@@ -83,16 +191,11 @@ def _gru_kernel(x, h0, wg, bg, wc, bc, mask) -> torch.Tensor:
     for t in args:
         if t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(f"GRU tensors must be float32 on {x.device}")
-    device = x.device
-    out = torch.empty((T, N, H), dtype=torch.float32, device=device)
+    x, h0, wg, bg, wc, bc, mask = args
     if T == 0 or N == 0:
-        return out
-    gx = torch.empty((T, N, 2 * H), dtype=torch.float32, device=device)
-    cx = torch.empty((T, N, H), dtype=torch.float32, device=device)
-    ptr = _build.ptr
-    _build.check(_lib().gru_forward(
-        *(ptr(t) for t in args), ptr(gx), ptr(cx), ptr(out), T, N, D, H,
-        _build.stream_ptr(device)), "gru_forward")
+        return torch.empty((T, N, H), dtype=torch.float32, device=x.device)
+    gx, cx = gru_input_projection(x, wg, bg, wc, bc)
+    out = gru_recurrence(gx, cx, h0, wg, wc, mask)
     gru_sequence.launches += 1
     return out
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -99,11 +99,37 @@ def overlap_add_reference(frames: torch.Tensor, num_samples: int,
     return signal[:, n_fft // 2: n_fft // 2 + num_samples]
 
 
+#: output groups (of ``vec`` samples) one block of ``csrc/ola.cu`` takes:
+#: one per thread of 256 (OLA_TILE)
+OLA_TILE = 256
+
+
+class OlaPlan(NamedTuple):
+    """How ``csrc/ola.cu`` cuts the output: each thread takes groups of
+    ``vec`` consecutive samples of one hop block, each block ``tile``
+    groups."""
+
+    vec: int
+    tile: int
+
+
+def ola_plan(n_fft: int, hop: int, num_samples: int) -> OlaPlan:
+    """The widest vector (4, 2 or 1 samples) that divides ``hop``,
+    ``n_fft``, ``n_fft / 2`` and ``num_samples``, so that every group lies
+    in one hop block, wholly inside or outside the centered output, and
+    every frame, window, norm and output access is aligned to its width."""
+    for vec in (4, 2):
+        if hop % vec == 0 and n_fft % vec == 0 and (n_fft // 2) % vec == 0 \
+                and num_samples % vec == 0:
+            return OlaPlan(vec, OLA_TILE)
+    return OlaPlan(1, OLA_TILE)
+
+
 def _lib():
     lib = _build.load("ola")
     fn = lib.ola_centered
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -134,9 +160,10 @@ def overlap_add_batched(frames: torch.Tensor, num_samples: int,
     out = torch.empty((B, num_samples), dtype=torch.float32, device=device)
     if num_samples == 0:
         return out
+    plan = ola_plan(n_fft, hop, num_samples)
     err = _lib().ola_centered(
         _build.ptr(frames), _build.ptr(window), _build.ptr(norm),
-        _build.ptr(out), B, T, n_fft, hop, num_samples,
+        _build.ptr(out), B, T, n_fft, hop, num_samples, plan.vec, plan.tile,
         _build.stream_ptr(device))
     _build.check(err, "ola_centered")
     overlap_add_batched.launches += 1

@@ -47,7 +47,7 @@ RUNGS = [dict(name="50-step, fast vocoder (fused)", n=4, max_steps=50,
 OWN_KERNELS = ("gl_frame_uv", "gl_dft_project", "gl_idft_window",
                "gl_ola_norm", "ola_centered", "gl_spectral_cast",
                "gl_spectral_dft", "gl_spectral_idft", "gru_input_proj",
-               "gru_recurrent")
+               "gru_cluster", "gru_recurrent")
 
 
 def _group(name: str) -> str:
