@@ -41,7 +41,20 @@
    Both directions' shapes must be on K4's cluster route; each is timed
    whole, its input projection alone, and its schedule with the products
    compiled out (``floor_ms``, the latency floor of the T steps).
-6. Prints the kernels line, the card line, and last the result line
+6. Training (the port's training path at full width, on a synthetic
+   corpus of 2 speakers x 32 utterances written from a seed by
+   ``dsp/host.py``): (a) one train step at batch 4 on the card and on the
+   CPU from the same weights and batch (``dropout_prob=0``): metrics,
+   gradients and BatchNorm statistics agree; (b) ``features_from_waveform``
+   on the card and on the CPU agree; (c) ``train()`` for 20 steps at batch
+   16 with evals, sample dumps, checkpoints and a ``torch.profiler`` trace
+   of steps 10-15, then a resume to step 30: the loss falls, and
+   ``metrics.jsonl`` carries the JAX driver's keys; (d) 5 steps from a
+   device-resident corpus with on-device features; (e)
+   ``Synthesizer.load`` of the run directory synthesizes through K1.  A
+   ``[train]`` line gives the median step time, target frames per second,
+   peak memory and the device idle share of the traced steps.
+7. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -701,6 +714,228 @@ def check_k4(dev, synth, rng):
     }
 
 
+# ---------------------------------------------------------------- training
+
+#: the train step's metric keys in metrics.jsonl: the JAX driver's (its
+#: train step's metrics but ``diverged``, plus ``sec_per_step``)
+TRAIN_KEYS = {"attention_mass", "grad_norm", "learning_rate", "linear_loss",
+              "loss", "loss_without_coeff", "mel_loss", "param_norm",
+              "sec_per_step", "step", "kind", "wall_time"}
+
+
+def train_config(**train_kw):
+    """The full-width model: ``Config()`` with Deep Voice 2 and two
+    speakers, batch 16 (the default), the train settings given."""
+    import dataclasses
+
+    from tacotron_tpu_torch.config import Config
+
+    base = Config()
+    return base.replace(
+        model=dataclasses.replace(base.model, model_type="deepvoice",
+                                  num_speakers=2),
+        train=dataclasses.replace(base.train, **train_kw))
+
+
+def check_train_step_card_vs_cpu(dev, dirs):
+    """(a) One full-width train step at batch 4 (utterances of 120-160
+    frames, ``dropout_prob=0``) from the same weights and batch on the card
+    and on the CPU: every metric rel 1e-5, each gradient (through Adam's
+    first moment, ``(1 - b1)`` times the clipped gradient) max abs over the
+    global norm 1e-4, the new BatchNorm statistics 1e-5."""
+    import dataclasses
+
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.train.state import create_train_state
+    from tacotron_tpu_torch.train.step import batch_to_device, make_train_step
+
+    cfg = train_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_prob=0.0),
+                      data=dataclasses.replace(cfg.data, min_iters=30,
+                                               max_iters=41))
+    feeder = DataFeeder(dirs, cfg, batch_size=4, n_test=0, seed=3)
+    host_batch = next(feeder.batches())
+    frames = host_batch.target_lengths
+    require(bool((frames >= 120).all() and (frames <= 160).all()),
+            f"(a) batch frames {frames} outside 120-160")
+    out = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        state = create_train_state(cfg, seed=0, device=d)
+        state, metrics = make_train_step(cfg)(
+            state, batch_to_device(host_batch, d), 0)
+        names = [n for n, _ in state.model.named_parameters()]
+        out[name] = dict(
+            metrics={k: float(v) for k, v in metrics.items()},
+            m={n: t.cpu() for n, t in zip(names, state.opt.m)},
+            stats={k: v.cpu() for k, v in state.model.named_buffers()})
+    c, g = out["cpu"], out["cuda"]
+    metric_rel = {k: abs(g["metrics"][k] - v) / max(abs(v), 1e-30)
+                  for k, v in c["metrics"].items()}
+    worst = max(metric_rel, key=metric_rel.get)
+    require(metric_rel[worst] <= 1e-5,
+            f"(a) metric {worst}: card {g['metrics'][worst]} vs CPU "
+            f"{c['metrics'][worst]}")
+    g_norm = c["metrics"]["grad_norm"]
+    scale = (min(1.0, cfg.train.grad_clip_norm / g_norm) * g_norm
+             * (1.0 - cfg.train.adam_beta1))
+    grad_err = max(float((g["m"][n] - c["m"][n]).abs().max()) / scale
+                   for n in c["m"])
+    require(grad_err <= 1e-4, f"(a) gradient max abs / norm {grad_err}")
+    stat_err = max(float((g["stats"][n] - c["stats"][n]).abs().max())
+                   for n in c["stats"])
+    require(stat_err <= 1e-5, f"(a) BatchNorm statistics {stat_err}")
+    log(f"[train] (a) card vs CPU, one step at batch 4 x {int(frames.max())} "
+        f"frames: loss {g['metrics']['loss']:.6f} vs "
+        f"{c['metrics']['loss']:.6f}, worst metric rel {metric_rel[worst]:.3e} "
+        f"({worst}), gradient max abs / norm {grad_err:.3e}, BatchNorm "
+        f"statistics max abs {stat_err:.3e}")
+    return {"metric_rel": metric_rel[worst], "grad_err": grad_err,
+            "stat_err": stat_err}
+
+
+def check_features_card_vs_cpu(dev, dirs):
+    """(b) ``features_from_waveform`` at n_fft 2048 on the card and on the
+    CPU, on a padded batch of the corpus's waveforms: max abs 1e-4 on the
+    normalized targets."""
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.dsp.chip import features_from_waveform
+
+    cfg = train_config(on_device_features=True)
+    batch = next(DataFeeder(dirs, cfg, n_test=0, seed=4).batches())
+    wav = torch.from_numpy(batch.waveforms.astype(np.float32) / 32767.0)
+    want = features_from_waveform(wav, cfg.audio)
+    got = features_from_waveform(wav.to(dev), cfg.audio)
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(got, want)]
+    require(max(errs) <= 1e-4, f"(b) features card vs CPU: {errs}")
+    log(f"[train] (b) features_from_waveform {tuple(wav.shape)}, n_fft "
+        f"{cfg.audio.n_fft}: linear max abs {errs[0]:.3e}, mel {errs[1]:.3e}")
+    return max(errs)
+
+
+def time_steps_from_checkpoint(dev, dirs, run_dir, n: int = 8):
+    """``train/profile.py::time_train_steps`` at batch 16 from the run's
+    last checkpoint: median sec/step, target frames per second and the peak
+    memory allocated over ``n`` steps."""
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.train.checkpoint import CheckpointManager
+    from tacotron_tpu_torch.train.profile import time_train_steps
+    from tacotron_tpu_torch.train.state import create_train_state
+    from tacotron_tpu_torch.train.step import make_train_step
+
+    cfg = train_config(decay_learning_rate_mode=1)
+    state = CheckpointManager(run_dir, cfg).restore(
+        create_train_state(cfg, seed=0, device=dev))
+    return time_train_steps(state, make_train_step(cfg),
+                            DataFeeder(dirs, cfg, seed=5).batches(), 1, n)
+
+
+def train_phase(dev) -> dict:
+    """Phase 6: training, (a)-(e) of the module docstring.  Every check
+    raises; nothing here falls back to the CPU but (a)'s and (b)'s
+    reference runs."""
+    import os
+    import tempfile
+
+    from tacotron_tpu_torch.data.synthetic import write_synthetic_corpus
+    from tacotron_tpu_torch.ops.kernels.gl_fused import gl_iteration
+    from tacotron_tpu_torch.synth import Synthesizer
+    from tacotron_tpu_torch.train.checkpoint import checkpoint_steps
+    from tacotron_tpu_torch.train.driver import train
+    from tacotron_tpu_torch.utils import read_metrics
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_config(decay_learning_rate_mode=1, test_interval=10,
+                           checkpoint_interval=10)
+        dirs = write_synthetic_corpus(os.path.join(tmp, "corpus"), cfg)
+        a = check_train_step_card_vs_cpu(dev, dirs)
+        b = check_features_card_vs_cpu(dev, dirs)
+
+        # (c) the driver: 20 steps, then a resume to 30
+        run = os.path.join(tmp, "run")
+        samples = os.path.join(run, "samples")
+        profile = os.path.join(tmp, "profile")
+        t0 = time.perf_counter()
+        state = train(run, dirs, cfg, num_steps=20, device=dev,
+                      test_dump_dir=samples, profile_dir=profile)
+        require(state.step == 20, f"(c) first run ended at {state.step}")
+        state = train(run, dirs, cfg, num_steps=30, device=dev,
+                      test_dump_dir=samples)
+        wall_c = time.perf_counter() - t0
+        require(state.step == 30, f"(c) resumed run ended at {state.step}")
+        records = read_metrics(os.path.join(run, "metrics.jsonl"))
+        trains = [r for r in records if r["kind"] == "train"]
+        evals = [r for r in records if r["kind"] == "eval"]
+        require([r["step"] for r in trains] == list(range(1, 31)),
+                f"(c) train steps {[r['step'] for r in trains]}")
+        require(all(set(r) == TRAIN_KEYS for r in trains),
+                f"(c) metric keys {sorted(trains[0])}")
+        require(all(np.isfinite(r["loss"]) for r in trains),
+                "(c) a loss is not finite")
+        require([r["step"] for r in evals] == [10, 20, 30],
+                f"(c) eval steps {[r['step'] for r in evals]}")
+        first = float(np.mean([r["loss"] for r in trains[:5]]))
+        last = float(np.mean([r["loss"] for r in trains[25:]]))
+        require(last < first, f"(c) loss did not fall: steps 1-5 {first}, "
+                              f"26-30 {last}")
+        require(checkpoint_steps(run) == [10, 20, 30],
+                f"(c) checkpoints {checkpoint_steps(run)}")
+        wavs = sorted(n for n in os.listdir(samples) if n.endswith(".wav"))
+        require(wavs == [f"step{s:09d}.wav" for s in (10, 20, 30)],
+                f"(c) sample dumps {wavs}")
+        with open(os.path.join(profile, "summary.json")) as fh:
+            prof = json.load(fh)
+        require(prof["device_kernels"] > 0,
+                "(c) the profiler saw no device kernel in steps 11-15")
+        log(f"[train] (c) driver: 30 steps (20, then resumed to 30) in "
+            f"{wall_c:.1f} s, loss {first:.4f} (steps 1-5) -> {last:.4f} "
+            f"(26-30), evals at 10/20/30, checkpoints "
+            f"{checkpoint_steps(run)}, steps 11-15 traced: "
+            f"{prof['device_kernels']} kernels, device busy "
+            f"{prof['device_busy_ms']:.1f} ms of {prof['wall_s']:.3f} "
+            f"s, idle share {prof['device_idle_share']:.4f}")
+        timing = time_steps_from_checkpoint(dev, dirs, run)
+
+        # (d) resident corpus with on-device features
+        cfg_d = train_config(decay_learning_rate_mode=1,
+                             device_resident_corpus=True,
+                             on_device_features=True, test_interval=1000,
+                             checkpoint_interval=1000)
+        run_d = os.path.join(tmp, "run_resident")
+        state = train(run_d, dirs, cfg_d, num_steps=5, device=dev)
+        rec_d = read_metrics(os.path.join(run_d, "metrics.jsonl"), "train")
+        require([r["step"] for r in rec_d] == [1, 2, 3, 4, 5]
+                and all(np.isfinite(r["loss"]) for r in rec_d),
+                f"(d) resident run: {rec_d}")
+        with open(os.path.join(run_d, "train.log")) as fh:
+            require("resident corpus:" in fh.read(),
+                    "(d) the run did not use the resident corpus")
+        log(f"[train] (d) resident corpus, on-device features: losses "
+            f"{[round(r['loss'], 5) for r in rec_d]}")
+
+        # (e) from training back to serving: the port's checkpoint through
+        # K1
+        synth = Synthesizer(device=dev).load(run)
+        gl_iteration.launches = 0
+        res = synth.synthesize(texts=KOREAN[:1], speaker_ids=[1],
+                               max_steps=50, fast_vocoder=True,
+                               librosa_trim=False)
+        torch.cuda.synchronize()
+        k1 = gl_iteration.launches
+        require(k1 > 0, "(e) the trained checkpoint's synthesis launched "
+                        "no fused Griffin-Lim kernel")
+        audio = check_waveforms(res, cfg.audio.hop_length, "(e)")
+        log(f"[train] (e) Synthesizer.load(run dir) at step 30: one "
+            f"sentence, 50 steps, fast vocoder: {audio} samples, K1 "
+            f"launches {k1}")
+    wall = time.perf_counter() - t_phase
+    log(f"[train] phase 6 wall time {wall:.1f} s")
+    return {"card_vs_cpu": a, "features_max_abs": b,
+            "loss_first5": first, "loss_last5": last,
+            "profile": prof, "timing": timing, "k1_launches": k1,
+            "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -744,6 +979,13 @@ def main() -> int:
         k["launches_by_call"] = {c: v[name]
                                  for c, v in main["launches"].items()}
     kernels.append(check_k4(dev, main["synth"], rng))
+    trained = train_phase(dev)
+    timing = trained["timing"]
+    log(f"[train] batch 16, full width: median {timing['sec_per_step']:.4f} "
+        f"sec/step, {timing['target_frames_per_s']:.1f} target frames/s, "
+        f"peak memory {timing['peak_memory_gib']:.2f} GiB, device idle "
+        f"share of steps 11-15 {trained['profile']['device_idle_share']:.4f}"
+        f" on {card}")
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")

@@ -2,11 +2,12 @@
 NVIDIA H100.
 
 The JAX package beside it is the reference; this package imports none of it
-(nor JAX) and keeps its own copies of what it needs.  The serving path
-is ported: text frontend -> Tacotron greedy decode -> attention trim ->
-Griffin-Lim vocoder -> int16 waveform, with the vocoder's two TPU kernels
-(the fused Griffin-Lim iteration and the overlap-add) rewritten as CUDA C++
-kernels for ``sm_90a`` (``csrc/``).  Entry points run on the card unless the
+(nor JAX) and keeps its own copies of what it needs.  Ported: the serving
+path (text frontend -> Tacotron greedy decode -> attention trim ->
+Griffin-Lim vocoder -> int16 waveform, ``synth/``), with the JAX package's
+four TPU kernels rewritten as CUDA C++ kernels for ``sm_90a`` (``csrc/``),
+and the training path (feeders, train step, optimizer, checkpoints and the
+driver, ``train/``, ``data/``).  Entry points run on the card unless the
 caller asks for the CPU.
 """
 

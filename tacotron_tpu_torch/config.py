@@ -119,8 +119,8 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization schedule (not used by the synthesis slice; kept so a
-    run's ``config.json`` round-trips)."""
+    """Optimization, schedule and training-loop settings
+    (``train/``)."""
 
     batch_size: int = 16
     adam_beta1: float = 0.9

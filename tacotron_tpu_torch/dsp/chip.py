@@ -1,4 +1,6 @@
-"""On-device DSP in PyTorch: STFT, iSTFT and Griffin-Lim vocoding.
+"""On-device DSP in PyTorch: STFT, iSTFT, Griffin-Lim vocoding, and the
+training targets (pre-emphasis, linear and mel spectrograms,
+:func:`features_from_waveform`).
 
 Counterpart of the JAX package's ``dsp/chip.py``, batched natively (every
 function takes a leading batch axis where the JAX one was vmapped).  The
@@ -41,6 +43,7 @@ from ..ops.kernels import gl_fused, griffin_lim
 from ..ops.kernels.gl_fused import round_bf16
 from ..ops.kernels.ola import (device_constant, overlap_add_batched,
                                overlap_add_reference, window_tensor)
+from .primitives import mel_basis
 
 
 def frame_signal(y: torch.Tensor, config) -> torch.Tensor:
@@ -482,6 +485,56 @@ def normalize_db(S: torch.Tensor, config) -> torch.Tensor:
 
 def denormalize_db(S: torch.Tensor, config) -> torch.Tensor:
     return torch.clamp(S, 0, 1) * -config.min_level_db + config.min_level_db
+
+
+def preemphasis(x: torch.Tensor, config) -> torch.Tensor:
+    """Pre-emphasis ``y[t] = x[t] - coef * x[t-1]`` of [..., S]."""
+    return torch.cat(
+        [x[..., :1], x[..., 1:] - config.preemphasis * x[..., :-1]], dim=-1)
+
+
+# ----------------------------------------------------------------- features
+
+def _mel_basis_t(config, device) -> torch.Tensor:
+    """The mel filterbank transposed, [n_freq, n_mels], on ``device``."""
+    return device_constant(
+        ("mel_t", config.sample_rate, config.n_fft, config.num_mels),
+        lambda: np.ascontiguousarray(mel_basis(
+            config.sample_rate, config.n_fft, config.num_mels).T), device)
+
+
+def _magnitude(y: torch.Tensor, config) -> torch.Tensor:
+    """|STFT| of the pre-emphasized waveforms [N, S]: [N, T, n_freq]."""
+    return torch.abs(stft(preemphasis(y, config), config))
+
+
+def _linear(mag: torch.Tensor, config) -> torch.Tensor:
+    return normalize_db(amp_to_db(mag) - config.ref_level_db, config)
+
+
+def _mel(mag: torch.Tensor, config) -> torch.Tensor:
+    return normalize_db(amp_to_db(mag @ _mel_basis_t(config, mag.device)),
+                        config)
+
+
+def spectrogram(y: torch.Tensor, config) -> torch.Tensor:
+    """Waveforms [N, S] -> normalized linear spectrograms [N, T, n_freq]."""
+    return _linear(_magnitude(y, config), config)
+
+
+def melspectrogram(y: torch.Tensor, config) -> torch.Tensor:
+    """Waveforms [N, S] -> normalized mel spectrograms [N, T, n_mels]."""
+    return _mel(_magnitude(y, config), config)
+
+
+def features_from_waveform(wavs: torch.Tensor, config):
+    """Waveforms [N, S] float32 -> (linear [N, T, n_freq], mel [N, T,
+    n_mels]) normalized targets, T = 1 + S // hop, from one shared STFT:
+    the train step's on-device feature extraction (the feeder ships int16
+    samples instead of spectrograms).  Frames whose window reaches into a
+    waveform's zero-padded tail see zeros there, as in the JAX package."""
+    mag = _magnitude(wavs, config)
+    return _linear(mag, config), _mel(mag, config)
 
 
 # ----------------------------------------------------------------- inversion

@@ -10,8 +10,11 @@ the convolutions transpose to [N, C, T] around ``F.conv1d``.
 - TF SAME padding puts ``(w-1)//2`` on the left and the rest on the right,
   which for even widths differs from PyTorch's symmetric padding, so every
   convolution and the max pool pad explicitly.
-- BatchNorm follows the activation, with TF's eps 1e-3 and running
-  statistics (inference only in this port).
+- BatchNorm follows the activation, with TF's eps 1e-3; in training mode
+  it normalizes with the batch's statistics and moves the running ones as
+  flax does (momentum 0.99, the biased variance).
+- Dropout draws its masks from the ``torch.Generator`` the caller passes,
+  so a train step's masks are a function of that generator's seed alone.
 """
 
 from __future__ import annotations
@@ -25,8 +28,23 @@ from torch import nn
 from ..ops.rnn import BiGRU
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: zero each element with probability ``rate`` and
+    scale the kept ones by ``1 / (1 - rate)``; the uniform draws come from
+    ``generator`` (on ``x``'s device)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class Prenet(nn.Module):
-    """Dense-ReLU-Dropout stack; dropout is active only in training mode."""
+    """Dense-ReLU-Dropout stack; dropout is active only in training mode and
+    draws from the ``generator`` passed to :meth:`forward`."""
 
     def __init__(self, input_size: int, layer_sizes: Sequence[int],
                  dropout_rate: float):
@@ -37,10 +55,12 @@ class Prenet(nn.Module):
         for i in range(len(layer_sizes)):
             self.add_module(f"dense_{i + 1}", nn.Linear(sizes[i], sizes[i + 1]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.num_layers):
             x = F.relu(getattr(self, f"dense_{i + 1}")(x))
-            x = F.dropout(x, self.dropout_rate, training=self.training)
+            if self.training:
+                x = dropout(x, self.dropout_rate, generator)
         return x
 
 
@@ -111,26 +131,42 @@ class Conv1d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis with TF's eps 1e-3, in the
-    JAX package's order: ``(x - mean) * (weight * rsqrt(var + eps)) + bias``.
-    Training statistics belong to the training slice, so training mode
-    raises."""
+    """BatchNorm over the last axis with TF's eps 1e-3, in flax's order:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
 
-    def __init__(self, features: int, eps: float = 1e-3):
+    Training mode follows flax's ``nn.BatchNorm`` (its ``_compute_stats``):
+    the statistics run over every axis but the last, padded positions
+    included; ``var = max(0, E[x^2] - E[x]^2)`` (the biased variance); and
+    the running statistics move as ``0.99 * running + 0.01 * batch``.
+    ``F.batch_norm`` would put the unbiased variance into ``running_var``
+    and compute the variance another way, so this is written out."""
+
+    EPS = 1e-3
+    MOMENTUM = 0.99
+
+    def __init__(self, features: int):
         super().__init__()
-        self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics (training) are not ported yet; "
-                "call .eval()")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.EPS) * self.weight
+            return (x - self.running_mean) * mul + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=axes)
+        var = torch.clamp(
+            (x * x).mean(dim=axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1.0 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var
+                                   + (1.0 - m) * var.detach())
+        mul = torch.rsqrt(var + self.EPS) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 def max_pool_same(x: torch.Tensor, width: int) -> torch.Tensor:

@@ -18,6 +18,15 @@ The decode loop is a Python loop over steps; greedy decoding feeds back the
 last of the r frames, teacher forcing feeds every r-th target frame behind a
 zero GO frame.
 
+Training mode (``model.train()``) is the teacher-forced train path: the
+prenets' dropout draws from the ``dropout_generator`` passed to
+:meth:`Tacotron.forward` (the encoder prenet first, then the decoder prenet
+step by step), and the BatchNorms use and update batch statistics.  The JAX
+model folds the train step into its dropout key and splits it per decoder
+step; here one generator, seeded per step by the caller, gives masks that
+are a function of that seed alone (bit equality with JAX's masks is not a
+goal).
+
 Speaker conditioning ('single', 'deepvoice', 'simple'): 'deepvoice' feeds a
 softsign Dense of the speaker embedding to the CBHG pre-highway bias, the
 encoder BiGRU initial state, the attention GRU initial state and each
@@ -81,9 +90,10 @@ class DecoderStep(nn.Module):
             cfg.dec_rnn_size, cfg.num_mels * cfg.reduction_factor)
 
     def forward(self, x, attn_state, context, alignments, dec_states, keys,
-                values, speaker, manual_t=None, is_manual=None):
+                values, speaker, manual_t=None, is_manual=None,
+                generator: Optional[torch.Generator] = None):
         cfg = self.cfg
-        pre = self.prenet(torch.cat([x, context], dim=-1))
+        pre = self.prenet(torch.cat([x, context], dim=-1), generator)
         if speaker is not None:
             pre = torch.cat([pre, speaker], dim=-1)
         attn_state = self.attention_rnn(attn_state, pre)
@@ -105,7 +115,7 @@ class DecoderStep(nn.Module):
 
 
 class Tacotron(nn.Module):
-    """Encoder, attention decoder loop and post-net (inference)."""
+    """Encoder, attention decoder loop and post-net."""
 
     def __init__(self, cfg: ModelConfig, vocab_size: int = VOCAB_SIZE):
         super().__init__()
@@ -199,9 +209,10 @@ class Tacotron(nn.Module):
     # ------------------------------------------------------------ encoder
 
     def encode(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
-               cond: SpeakerConditioning) -> torch.Tensor:
+               cond: SpeakerConditioning,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Token ids [N, T_in] -> memory [N, T_in, 2*enc_rnn_size]."""
-        pre = self.encoder_prenet(self.char_embedding(inputs))
+        pre = self.encoder_prenet(self.char_embedding(inputs), generator)
         return self.encoder_cbhg(pre, input_lengths,
                                  before_highway=cond.before_highway,
                                  rnn_init_state=cond.encoder_rnn_init)
@@ -212,7 +223,8 @@ class Tacotron(nn.Module):
                     decoder_inputs: Optional[torch.Tensor],
                     cond: SpeakerConditioning,
                     manual_alignments: Optional[torch.Tensor] = None,
-                    is_manual: Optional[torch.Tensor] = None
+                    is_manual: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (frames [N, steps, M*r], alignments [N, steps, T_in])."""
         cfg = self.cfg
@@ -240,7 +252,8 @@ class Tacotron(nn.Module):
                         else manual_alignments[:, t])
             frames, attn_state, context, alignments, dec_states = \
                 self.decoder(x, attn_state, context, alignments, dec_states,
-                             keys, memory, cond.embed, manual_t, is_manual)
+                             keys, memory, cond.embed, manual_t, is_manual,
+                             generator)
             prev_frame = frames[:, -cfg.num_mels:]
             all_frames.append(frames)
             all_aligns.append(alignments)
@@ -253,15 +266,18 @@ class Tacotron(nn.Module):
                 mel_targets: Optional[torch.Tensor] = None,
                 max_steps: Optional[int] = None,
                 manual_alignments: Optional[torch.Tensor] = None,
-                is_manual: Optional[torch.Tensor] = None
+                is_manual: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """Teacher-forced when ``mel_targets`` is given, greedy otherwise.
         Returns ``mel_outputs`` [N, T_out, M], ``linear_outputs``
-        [N, T_out, F] and ``alignments`` [N, T_in, T_dec]."""
+        [N, T_out, F] and ``alignments`` [N, T_in, T_dec].
+        ``dropout_generator`` feeds the prenets' dropout in training mode
+        (the post-net has none)."""
         cfg = self.cfg
         r = cfg.reduction_factor
         cond = self.speaker_conditioning(speaker_id)
-        memory = self.encode(inputs, input_lengths, cond)
+        memory = self.encode(inputs, input_lengths, cond, dropout_generator)
 
         if mel_targets is not None:
             taken = mel_targets[:, r - 1::r, :]
@@ -274,7 +290,7 @@ class Tacotron(nn.Module):
 
         frames, align_history = self.run_decoder(
             memory, num_steps, decoder_inputs, cond, manual_alignments,
-            is_manual)
+            is_manual, dropout_generator)
         N = inputs.shape[0]
         mel_outputs = frames.reshape(N, num_steps * r, cfg.num_mels)
 

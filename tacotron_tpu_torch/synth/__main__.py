@@ -3,6 +3,7 @@
     python -m tacotron_tpu_torch.synth --random_init "안녕하세요"
     python -m tacotron_tpu_torch.synth --load_npz weights.npz \
         --config config.json "text"
+    python -m tacotron_tpu_torch.synth --load_path logs/run_x "text"
 
 Runs on the card; ``--device cpu`` runs on the CPU instead.
 """
@@ -25,6 +26,9 @@ def main(argv=None) -> None:
                         help="seed of --random_init")
     parser.add_argument("--load_npz", default=None,
                         help="flat .npz of '/'-joined flax variable paths")
+    parser.add_argument("--load_path", default=None,
+                        help="run dir of the port's trainer (its config "
+                             "and newest checkpoint)")
     parser.add_argument("--config", default=None,
                         help="config.json of the run (default: Config())")
     parser.add_argument("--device", default=None,
@@ -39,14 +43,20 @@ def main(argv=None) -> None:
                         help="30 momentum Griffin-Lim iterations")
     args = parser.parse_args(argv)
 
-    if args.random_init == (args.load_npz is not None):
-        parser.error("pass exactly one of --random_init and --load_npz")
-    config = load_config(args.config) if args.config else Config()
+    sources = (args.random_init, args.load_npz is not None,
+               args.load_path is not None)
+    if sum(sources) != 1:
+        parser.error("pass exactly one of --random_init, --load_npz and "
+                     "--load_path")
     synth = Synthesizer(device=args.device)
-    if args.random_init:
-        synth.init_random(config, seed=args.seed)
+    if args.load_path:
+        synth.load(args.load_path)
     else:
-        synth.load_npz(args.load_npz, config)
+        config = load_config(args.config) if args.config else Config()
+        if args.random_init:
+            synth.init_random(config, seed=args.seed)
+        else:
+            synth.load_npz(args.load_npz, config)
 
     results = synth.synthesize(
         texts=args.text,

@@ -50,7 +50,7 @@ OWN_KERNELS = ("gl_frame_uv", "gl_dft_project", "gl_idft_window",
                "gru_cluster", "gru_recurrent")
 
 
-def _group(name: str) -> str:
+def kernel_group(name: str) -> str:
     for own in OWN_KERNELS:
         if own in name:
             return own
@@ -77,16 +77,20 @@ def _wall(fn, repeats: int) -> float:
     return statistics.median(times)
 
 
-def _kernel_intervals(prof):
-    """(name, start_us, end_us) of every device kernel in the trace."""
+def kernel_intervals(prof):
+    """(name, start_us, end_us) of every device kernel in the trace, read
+    from the profiler's raw events: building its ``FunctionEvent`` list
+    (``prof.events()``) is many times slower for the hundreds of thousands
+    of kernels, launches and ops of a few train steps."""
     out = []
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            out.append((evt.name, evt.time_range.start, evt.time_range.end))
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            start = evt.start_ns() / 1e3
+            out.append((evt.name(), start, start + evt.duration_ns() / 1e3))
     return out
 
 
-def _busy_us(intervals) -> float:
+def busy_us(intervals) -> float:
     busy, end = 0.0, -1.0
     for _, s, e in sorted(intervals, key=lambda x: x[1]):
         if s > end:
@@ -96,6 +100,62 @@ def _busy_us(intervals) -> float:
             busy += e - end
             end = e
     return busy
+
+
+def device_summary(prof, wall_s: float) -> dict:
+    """From a finished ``torch.profiler`` trace of ``wall_s`` seconds: the
+    device kernels, their busy time (overlaps counted once), the idle share
+    of the wall time (None without a kernel), and the device ms and
+    launches by kernel group."""
+    intervals = kernel_intervals(prof)
+    by_group: dict = {}
+    calls: dict = {}
+    for name, s, e in intervals:
+        g = kernel_group(name)
+        by_group[g] = by_group.get(g, 0.0) + (e - s) / 1e3
+        calls[g] = calls.get(g, 0) + 1
+    busy_ms = busy_us(intervals) / 1e3
+    return {
+        "device_kernels": len(intervals),
+        "device_busy_ms": busy_ms,
+        "device_idle_share": (1.0 - busy_ms / (wall_s * 1e3)
+                              if intervals else None),
+        "device_ms_by_group": dict(sorted(by_group.items(),
+                                          key=lambda kv: -kv[1])),
+        "device_launches_by_group": calls,
+    }
+
+
+class TraceWindow:
+    """A ``torch.profiler`` trace from :meth:`start` to :meth:`stop`, the
+    device synchronized at both ends: the one definition of a traced
+    window's wall time and device idle share (the profiles, the train
+    driver's ``--profile``)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def start(self) -> "TraceWindow":
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def stop(self, trace_path=None) -> dict:
+        """Close the window: its ``wall_s`` and :func:`device_summary`;
+        the Chrome trace is written to ``trace_path`` when given."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+        if trace_path:
+            self.prof.export_chrome_trace(trace_path)
+        return dict(wall_s=wall, **device_summary(self.prof, wall))
 
 
 def profile_rung(synth, rung, repeats: int) -> dict:
@@ -140,22 +200,9 @@ def profile_rung(synth, rung, repeats: int) -> dict:
     decode_s = _wall(decode, repeats)
     vocode_s = _wall(vocode, repeats)
 
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        synth.synthesize(**kw)
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    intervals = _kernel_intervals(prof)
-    by_group: dict = {}
-    calls: dict = {}
-    for name, s, e in intervals:
-        g = _group(name)
-        by_group[g] = by_group.get(g, 0.0) + (e - s) / 1e3
-        calls[g] = calls.get(g, 0) + 1
-    busy_ms = _busy_us(intervals) / 1e3
+    window = TraceWindow(dev).start()
+    synth.synthesize(**kw)
+    traced = window.stop()
     return {
         "rung": rung["name"], "batch": rung["n"],
         "max_steps": rung["max_steps"],
@@ -164,14 +211,7 @@ def profile_rung(synth, rung, repeats: int) -> dict:
         "audio_s": audio_s, "wall_s": wall,
         "audio_s_per_s": audio_s / wall,
         "decode_s": decode_s, "vocode_s": vocode_s,
-        "traced_wall_s": traced_wall,
-        "device_kernels": len(intervals),
-        "device_busy_ms": busy_ms,
-        "device_idle_share": (1.0 - busy_ms / (traced_wall * 1e3)
-                              if intervals else None),
-        "device_ms_by_group": dict(sorted(by_group.items(),
-                                          key=lambda kv: -kv[1])),
-        "device_launches_by_group": calls,
+        "traced_wall_s": traced.pop("wall_s"), **traced,
     }
 
 

@@ -149,8 +149,8 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the "
-                "synthesizer on the CPU")
+                "CUDA is not available; pass device='cpu' (--device cpu) "
+                "to run on the CPU")
         device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -208,6 +208,15 @@ class Synthesizer:
     def load_npz(self, path: str, config: Config) -> "Synthesizer":
         """Weights from a flat ``.npz`` of ``/``-joined flax paths."""
         return self.load_variables(load_npz(path), config)
+
+    def load(self, run_dir: str, step: Optional[int] = None
+             ) -> "Synthesizer":
+        """Weights and config of a run directory the port's trainer wrote
+        (``config.json`` and ``checkpoints/<step>/variables.npz``): the
+        checkpoint at ``step``, default the newest."""
+        from ..train.checkpoint import checkpoint_path, load_run_config
+        return self.load_npz(checkpoint_path(run_dir, step),
+                             load_run_config(run_dir))
 
     def cleaner_names(self) -> List[str]:
         return list(self.config.data.cleaner_names())

@@ -1,0 +1,144 @@
+"""Training CLI, with the flags of the JAX package's ``train.py``:
+
+    python -m tacotron_tpu_torch.train --data_paths=spk1/data,spk2/data
+    python -m tacotron_tpu_torch.train --data_paths=... --load_path=logs/x
+    python -m tacotron_tpu_torch.train --data_paths=... --initialize_path=logs/x
+
+(``--load_path`` resumes a run, ``--initialize_path`` warm-starts from one.)
+
+Runs on the card; ``--device cpu`` runs on the CPU instead.  ``--preset
+tpu``, ``--prewarm`` and ``--scan_unroll`` are XLA settings and are
+refused, as is ``--distributed`` (multi-GPU is not ported yet).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+from ..config import Config, load_config
+from ..synth.synthesizer import resolve_device
+from ..utils import prepare_dirs
+from .driver import train
+
+
+def build_config(args, data_paths) -> Config:
+    """The run's config: ``--config`` (or the defaults) with the flags
+    applied; one speaker per data dir."""
+    config = load_config(args.config) if args.config else Config()
+    model_kw = {"num_speakers": len(data_paths)}
+    if args.model_type:
+        model_kw["model_type"] = args.model_type
+    elif len(data_paths) > 1 and config.model.model_type == "single":
+        model_kw["model_type"] = "deepvoice"
+    train_kw = {}
+    if args.batch_size:
+        train_kw["batch_size"] = args.batch_size
+    if args.on_device_features:
+        train_kw["on_device_features"] = True
+    if args.device_resident:
+        train_kw["device_resident_corpus"] = True
+    if args.guided_attention_weight is not None:
+        train_kw["guided_attention_weight"] = args.guided_attention_weight
+    if args.guided_attention_decay_steps is not None:
+        train_kw["guided_attention_decay_steps"] = \
+            args.guided_attention_decay_steps
+    return config.replace(
+        model=dataclasses.replace(config.model, **model_kw),
+        train=dataclasses.replace(config.train, **train_kw))
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description="train the model")
+    parser.add_argument("--data_paths", required=True,
+                        help="comma-separated npz data dirs (one per speaker)")
+    parser.add_argument("--log_dir", default="logs")
+    parser.add_argument("--load_path", default=None,
+                        help="run dir to resume (keeps step)")
+    parser.add_argument("--initialize_path", default=None,
+                        help="run dir to warm-start from (resets step)")
+    parser.add_argument("--config", default=None,
+                        help="config.json overriding the defaults")
+    parser.add_argument("--preset", default=None,
+                        help="refused: 'tpu' is an XLA preset")
+    parser.add_argument("--num_steps", type=int, default=100000)
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--model_type", default=None,
+                        choices=["single", "deepvoice", "simple"])
+    parser.add_argument("--seed", type=int, default=123)
+    parser.add_argument("--skip_path_filter", action="store_true",
+                        help="bypass corpus frame/token filtering")
+    parser.add_argument("--blacklists", default="",
+                        help="comma-separated path substrings to exclude")
+    parser.add_argument("--webhook_url", default=None,
+                        help="POST notifications here on divergence")
+    parser.add_argument("--guided_attention_weight", type=float, default=None,
+                        help="weight of the soft-diagonal attention prior; "
+                             "0 = off (reference parity)")
+    parser.add_argument("--guided_attention_decay_steps", type=int,
+                        default=None,
+                        help="linearly anneal the guided-attention weight "
+                             "to 0 over this many steps")
+    parser.add_argument("--profile", action="store_true",
+                        help="torch.profiler trace of steps 10-15 into "
+                             "<run_dir>/profile")
+    parser.add_argument("--prefetch_depth", type=int, default=2,
+                        help="batches copied to the card ahead of the step "
+                             "on a side stream; 0 = copy on the critical "
+                             "path")
+    parser.add_argument("--sync_every", type=int, default=25,
+                        help="steps between host metric flushes; 1 = fully "
+                             "synchronous")
+    parser.add_argument("--on_device_features", action="store_true",
+                        help="ship int16 waveforms and extract the targets "
+                             "on the card (a corpus built with "
+                             "DataConfig.store_waveform)")
+    parser.add_argument("--device_resident", action="store_true",
+                        help="copy the whole corpus to the card once and "
+                             "gather each batch there")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda; raises without "
+                             "a card)")
+    parser.add_argument("--prewarm", action="store_true",
+                        help="refused: it compiles XLA programs")
+    parser.add_argument("--scan_unroll", default=None,
+                        help="refused: an XLA unroll setting")
+    parser.add_argument("--distributed", action="store_true",
+                        help="refused: multi-GPU training is not ported yet")
+    args = parser.parse_args(argv)
+
+    if args.preset is not None:
+        parser.error(f"--preset {args.preset!r} applies XLA settings "
+                     f"(bf16 compute, scan unroll); the port trains in "
+                     f"float32 and has no preset")
+    if args.prewarm:
+        parser.error("--prewarm compiles the XLA programs of the bucket "
+                     "ladder; eager PyTorch has nothing to compile")
+    if args.scan_unroll is not None:
+        parser.error("--scan_unroll sets the unroll of XLA scans; the port's "
+                     "loops are eager PyTorch and take no unroll")
+    if args.distributed:
+        parser.error("--distributed: multi-GPU training is not ported yet")
+
+    device = resolve_device(args.device)
+    data_paths = [p for p in args.data_paths.split(",") if p]
+    config = build_config(args, data_paths)
+    run_dir = args.load_path or prepare_dirs(args.log_dir, data_paths)
+    train(run_dir, data_paths, config,
+          num_steps=args.num_steps,
+          initialize_path=args.initialize_path,
+          seed=args.seed,
+          test_dump_dir=os.path.join(run_dir, "samples"),
+          profile_dir=(os.path.join(run_dir, "profile")
+                       if args.profile else None),
+          webhook_url=args.webhook_url,
+          skip_path_filter=args.skip_path_filter,
+          blacklists=[b for b in args.blacklists.split(",") if b],
+          sync_every=args.sync_every,
+          prefetch_depth=args.prefetch_depth,
+          device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,204 @@
+"""The train and eval steps: counterparts of ``tacotron_tpu/train/step.py``.
+
+One train step is a teacher-forced forward in training mode (dropout from a
+generator seeded by ``(seed, step)``, BatchNorm on batch statistics, the
+running statistics moved in place), the losses, ``backward``, and the
+clip -> Adam -> schedule update of ``train/optim.py``.  Its metrics are
+JAX's keys, kept as device tensors (``diverged`` a device bool) so the loop
+never waits on the card; the driver fetches them in batches.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..dsp.chip import features_from_waveform
+from .losses import guided_attention_loss, tacotron_loss
+from .optim import Optimizer, global_norm
+from .state import TrainState
+
+
+class Batch(NamedTuple):
+    """One training batch: numpy arrays from the feeder, tensors once on
+    the device."""
+
+    inputs: Any                  # [N, T_in] int32 token ids
+    input_lengths: Any           # [N] int32
+    loss_coeff: Any              # [N] float32
+    mel_targets: Any             # [N, T_out, num_mels] (None: waveforms)
+    linear_targets: Any          # [N, T_out, num_freq] (None: waveforms)
+    speaker_id: Any              # [N] int32
+    # true frame counts before padding, for the reference-equivalent loss
+    # normalization (train/losses.py)
+    target_lengths: Any = None   # [N] int32
+    # int16 waveforms [N, (T_out-1)*hop] for on-device feature extraction
+    # (TrainConfig.on_device_features); mel/linear_targets are None then
+    waveforms: Any = None
+
+
+def to_device(x, device) -> torch.Tensor:
+    """An array or tensor on ``device``.  For the card a host array goes
+    through pinned memory and copies asynchronously on the current stream
+    (the caching host allocator keeps each pinned buffer until its copy has
+    run), so the call does not wait for the device."""
+    device = torch.device(device)
+    t = torch.as_tensor(x)
+    if device.type != "cuda":
+        return t.to(device)
+    if t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def batch_to_device(batch: Batch, device) -> Batch:
+    """Every field of ``batch`` through :func:`to_device`."""
+    return Batch(*(None if x is None else to_device(x, device)
+                   for x in batch))
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed at ``step``: a hash of (seed, step)
+    alone, so a resumed run draws the masks an uninterrupted one does."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
+def forward_loss(model, config, batch: Batch,
+                 generator: Optional[torch.Generator] = None,
+                 guided_weight: Optional[torch.Tensor] = None
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Teacher-forced forward (in the model's current mode) and the losses,
+    with the ``attention_mass`` telemetry and, when the config turns it on,
+    the guided-attention prior (``guided_weight`` overrides the config's
+    constant weight).  Returns (losses, model outputs)."""
+    if config.train.on_device_features and batch.waveforms is not None:
+        wav = batch.waveforms.to(torch.float32) / 32767.0
+        linear_t, mel_t = features_from_waveform(wav, config.audio)
+        batch = batch._replace(mel_targets=mel_t, linear_targets=linear_t)
+    speaker = batch.speaker_id if config.model.num_speakers > 1 else None
+    out = model(batch.inputs, batch.input_lengths, speaker_id=speaker,
+                mel_targets=batch.mel_targets, dropout_generator=generator)
+    losses = tacotron_loss(out["mel_outputs"], out["linear_outputs"],
+                           batch.mel_targets, batch.linear_targets,
+                           batch.loss_coeff, config.train, config.audio,
+                           target_lengths=batch.target_lengths,
+                           reduction_factor=config.model.reduction_factor)
+
+    # attention health: mean in-bounds attention mass per true decode step
+    # (the monotonic attention leaks mass past the last token as alignment
+    # collapses; this falls first)
+    with torch.no_grad():
+        align = out["alignments"]                       # [N, T_in, T_dec]
+        N, T_in, T_dec = align.shape
+        dev = align.device
+        tok_mask = (torch.arange(T_in, device=dev)[None, :]
+                    < batch.input_lengths[:, None])
+        if batch.target_lengths is not None:
+            r = max(1, config.model.reduction_factor)
+            dec_steps = torch.clamp(torch.ceil(
+                batch.target_lengths.to(torch.float32) / r), 1.0, float(T_dec))
+        else:
+            dec_steps = torch.full((N,), float(T_dec), device=dev)
+        step_mask = (torch.arange(T_dec, device=dev)[None, :]
+                     < dec_steps[:, None])
+        in_bounds = (align.to(torch.float32) * tok_mask[:, :, None]
+                     * step_mask[:, None, :])
+        mass = in_bounds.sum(dim=1).sum(dim=1) / dec_steps
+        losses["attention_mass"] = mass.mean()
+
+    if config.train.guided_attention_weight > 0.0:
+        attn = guided_attention_loss(
+            out["alignments"], batch.input_lengths, batch.target_lengths,
+            config.model.reduction_factor,
+            sigma=config.train.guided_attention_sigma)
+        if guided_weight is None:
+            guided_weight = config.train.guided_attention_weight
+        losses["attention_loss"] = attn
+        losses["loss"] = losses["loss"] + guided_weight * attn
+    return losses, out
+
+
+def guided_weight_at(config, step: torch.Tensor) -> Optional[torch.Tensor]:
+    """The annealed guided-attention weight at ``step`` (a tensor): linear
+    from the configured weight to 0 over ``guided_attention_decay_steps``;
+    None when the weight is constant (decay 0) or off."""
+    base = config.train.guided_attention_weight
+    decay = config.train.guided_attention_decay_steps
+    if base <= 0.0 or decay <= 0:
+        return None
+    frac = 1.0 - step.to(torch.float32) / float(decay)
+    return base * torch.clamp(frac, 0.0, 1.0)
+
+
+def make_train_step(config, randomly_initialized: bool = True):
+    """Returns ``step_fn(state, batch, seed) -> (state, metrics)``: one
+    update of ``state`` in place (``state.step`` advanced by one) from a
+    batch on the model's device; ``seed`` with the step seeds the dropout
+    masks."""
+    optimizer = Optimizer(config.train, randomly_initialized)
+
+    def step_fn(state: TrainState, batch: Batch,
+                seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model = state.model
+        params = state.parameters()
+        dev = params[0].device
+        model.train()
+        # device scalars made by a fill kernel: no host-to-device copy
+        step_t = torch.full((), state.step, dtype=torch.int32, device=dev)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(dropout_seed(seed, state.step))
+        gw = guided_weight_at(config, step_t)
+
+        losses, _ = forward_loss(model, config, batch, generator, gw)
+        for p in params:
+            p.grad = None
+        losses["loss"].backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        grad_norm = optimizer.update(params, grads, state.opt)
+        for p in params:
+            p.grad = None
+
+        loss = losses["loss"].detach()
+        metrics = {
+            "param_norm": global_norm([p.detach() for p in params]),
+            "loss": loss,
+            "mel_loss": losses["mel_loss"].detach(),
+            "linear_loss": losses["linear_loss"].detach(),
+            "loss_without_coeff": losses["loss_without_coeff"].detach(),
+            "learning_rate": optimizer.schedule(step_t),
+            "grad_norm": grad_norm,
+            # loss-explosion flag (reference train.py:228-230)
+            "diverged": torch.logical_or(loss > 100.0, torch.isnan(loss)),
+            "attention_mass": losses["attention_mass"],
+        }
+        if config.train.guided_attention_weight > 0.0:
+            metrics["attention_loss"] = losses["attention_loss"].detach()
+            if gw is not None:
+                metrics["guided_weight"] = gw
+        state.step += 1
+        return state, metrics
+
+    return step_fn
+
+
+def make_eval_step(config):
+    """Teacher-forced eval: losses only, in eval mode (running statistics,
+    no dropout), no state change.  Like the JAX eval step it applies the
+    config's constant guided-attention weight, not the annealed one."""
+
+    @torch.no_grad()
+    def eval_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.eval()
+        try:
+            losses, _ = forward_loss(model, config, batch)
+        finally:
+            model.train()
+        return {k: losses[k] for k in ("loss", "mel_loss", "linear_loss",
+                                       "loss_without_coeff")}
+
+    return eval_fn
