@@ -54,7 +54,26 @@
    ``Synthesizer.load`` of the run directory synthesizes through K1.  A
    ``[train]`` line gives the median step time, target frames per second,
    peak memory and the device idle share of the traced steps.
-7. Prints the kernels line, the card line, and last the result line
+7. Serving entry points, on phase 4's synthesizer and phase 6's run
+   directory, the kernels' launch counters zeroed before each step and read
+   after: (a) ``synthesize(manual_attention_mode=1)`` on 4 sentences at 50
+   steps (the first pass is the decode alone, the second runs K1); (b)
+   ``synthesize_robust(retry_mode=1)`` on them (random weights fail the
+   health gate: K1 runs in both passes); (c) ``synthesize_long`` on a
+   paragraph of more than 240 tokens (one batched call over 3+ chunks at
+   200 steps: K2; the output is the pieces plus the gaps); (d)
+   ``vocode="host"`` and ``"none"`` on 2 sentences (no Griffin-Lim kernel;
+   the spectrograms equal the chip call's decode, the ends its ends); (e)
+   the HTTP server (``app.make_handler`` and ``SynthWorker``) on an
+   ephemeral port: one GET, four concurrent GETs (coalesced), a long JSON
+   POST (the chunked route), a repeat GET served from the cache, every
+   response a WAV at 24 kHz; (f) the eval CLI with ``--attention_retry 1``
+   on phase 6's run directory; (g) ``compat`` export of that run to a TF1
+   bundle and import into a new run directory: bit-identical waveforms,
+   and ``train`` resumes it for one step.  A ``[serve]`` line gives the
+   walls of one request, of the burst, of ``synthesize_long``, of the
+   robust call and of host against chip vocoding.
+8. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -66,6 +85,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -829,12 +849,12 @@ def time_steps_from_checkpoint(dev, dirs, run_dir, n: int = 8):
                             DataFeeder(dirs, cfg, seed=5).batches(), 1, n)
 
 
-def train_phase(dev) -> dict:
-    """Phase 6: training, (a)-(e) of the module docstring.  Every check
-    raises; nothing here falls back to the CPU but (a)'s and (b)'s
-    reference runs."""
+def train_phase(dev, tmp: str) -> dict:
+    """Phase 6: training, (a)-(e) of the module docstring, in ``tmp``.
+    Every check raises; nothing here falls back to the CPU but (a)'s and
+    (b)'s reference runs.  Returns the numbers, the run dir and the
+    corpus."""
     import os
-    import tempfile
 
     from tacotron_tpu_torch.data.synthetic import write_synthetic_corpus
     from tacotron_tpu_torch.ops.kernels.gl_fused import gl_iteration
@@ -844,96 +864,449 @@ def train_phase(dev) -> dict:
     from tacotron_tpu_torch.utils import read_metrics
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = train_config(decay_learning_rate_mode=1, test_interval=10,
-                           checkpoint_interval=10)
-        dirs = write_synthetic_corpus(os.path.join(tmp, "corpus"), cfg)
-        a = check_train_step_card_vs_cpu(dev, dirs)
-        b = check_features_card_vs_cpu(dev, dirs)
+    cfg = train_config(decay_learning_rate_mode=1, test_interval=10,
+                       checkpoint_interval=10)
+    dirs = write_synthetic_corpus(os.path.join(tmp, "corpus"), cfg)
+    a = check_train_step_card_vs_cpu(dev, dirs)
+    b = check_features_card_vs_cpu(dev, dirs)
 
-        # (c) the driver: 20 steps, then a resume to 30
-        run = os.path.join(tmp, "run")
-        samples = os.path.join(run, "samples")
-        profile = os.path.join(tmp, "profile")
-        t0 = time.perf_counter()
-        state = train(run, dirs, cfg, num_steps=20, device=dev,
-                      test_dump_dir=samples, profile_dir=profile)
-        require(state.step == 20, f"(c) first run ended at {state.step}")
-        state = train(run, dirs, cfg, num_steps=30, device=dev,
-                      test_dump_dir=samples)
-        wall_c = time.perf_counter() - t0
-        require(state.step == 30, f"(c) resumed run ended at {state.step}")
-        records = read_metrics(os.path.join(run, "metrics.jsonl"))
-        trains = [r for r in records if r["kind"] == "train"]
-        evals = [r for r in records if r["kind"] == "eval"]
-        require([r["step"] for r in trains] == list(range(1, 31)),
-                f"(c) train steps {[r['step'] for r in trains]}")
-        require(all(set(r) == TRAIN_KEYS for r in trains),
-                f"(c) metric keys {sorted(trains[0])}")
-        require(all(np.isfinite(r["loss"]) for r in trains),
-                "(c) a loss is not finite")
-        require([r["step"] for r in evals] == [10, 20, 30],
-                f"(c) eval steps {[r['step'] for r in evals]}")
-        first = float(np.mean([r["loss"] for r in trains[:5]]))
-        last = float(np.mean([r["loss"] for r in trains[25:]]))
-        require(last < first, f"(c) loss did not fall: steps 1-5 {first}, "
-                              f"26-30 {last}")
-        require(checkpoint_steps(run) == [10, 20, 30],
-                f"(c) checkpoints {checkpoint_steps(run)}")
-        wavs = sorted(n for n in os.listdir(samples) if n.endswith(".wav"))
-        require(wavs == [f"step{s:09d}.wav" for s in (10, 20, 30)],
-                f"(c) sample dumps {wavs}")
-        with open(os.path.join(profile, "summary.json")) as fh:
-            prof = json.load(fh)
-        require(prof["device_kernels"] > 0,
-                "(c) the profiler saw no device kernel in steps 11-15")
-        log(f"[train] (c) driver: 30 steps (20, then resumed to 30) in "
-            f"{wall_c:.1f} s, loss {first:.4f} (steps 1-5) -> {last:.4f} "
-            f"(26-30), evals at 10/20/30, checkpoints "
-            f"{checkpoint_steps(run)}, steps 11-15 traced: "
-            f"{prof['device_kernels']} kernels, device busy "
-            f"{prof['device_busy_ms']:.1f} ms of {prof['wall_s']:.3f} "
-            f"s, idle share {prof['device_idle_share']:.4f}")
-        timing = time_steps_from_checkpoint(dev, dirs, run)
+    # (c) the driver: 20 steps, then a resume to 30
+    run = os.path.join(tmp, "run")
+    samples = os.path.join(run, "samples")
+    profile = os.path.join(tmp, "profile")
+    t0 = time.perf_counter()
+    state = train(run, dirs, cfg, num_steps=20, device=dev,
+                  test_dump_dir=samples, profile_dir=profile)
+    require(state.step == 20, f"(c) first run ended at {state.step}")
+    state = train(run, dirs, cfg, num_steps=30, device=dev,
+                  test_dump_dir=samples)
+    wall_c = time.perf_counter() - t0
+    require(state.step == 30, f"(c) resumed run ended at {state.step}")
+    records = read_metrics(os.path.join(run, "metrics.jsonl"))
+    trains = [r for r in records if r["kind"] == "train"]
+    evals = [r for r in records if r["kind"] == "eval"]
+    require([r["step"] for r in trains] == list(range(1, 31)),
+            f"(c) train steps {[r['step'] for r in trains]}")
+    require(all(set(r) == TRAIN_KEYS for r in trains),
+            f"(c) metric keys {sorted(trains[0])}")
+    require(all(np.isfinite(r["loss"]) for r in trains),
+            "(c) a loss is not finite")
+    require([r["step"] for r in evals] == [10, 20, 30],
+            f"(c) eval steps {[r['step'] for r in evals]}")
+    first = float(np.mean([r["loss"] for r in trains[:5]]))
+    last = float(np.mean([r["loss"] for r in trains[25:]]))
+    require(last < first, f"(c) loss did not fall: steps 1-5 {first}, "
+                          f"26-30 {last}")
+    require(checkpoint_steps(run) == [10, 20, 30],
+            f"(c) checkpoints {checkpoint_steps(run)}")
+    wavs = sorted(n for n in os.listdir(samples) if n.endswith(".wav"))
+    require(wavs == [f"step{s:09d}.wav" for s in (10, 20, 30)],
+            f"(c) sample dumps {wavs}")
+    with open(os.path.join(profile, "summary.json")) as fh:
+        prof = json.load(fh)
+    require(prof["device_kernels"] > 0,
+            "(c) the profiler saw no device kernel in steps 11-15")
+    log(f"[train] (c) driver: 30 steps (20, then resumed to 30) in "
+        f"{wall_c:.1f} s, loss {first:.4f} (steps 1-5) -> {last:.4f} "
+        f"(26-30), evals at 10/20/30, checkpoints "
+        f"{checkpoint_steps(run)}, steps 11-15 traced: "
+        f"{prof['device_kernels']} kernels, device busy "
+        f"{prof['device_busy_ms']:.1f} ms of {prof['wall_s']:.3f} "
+        f"s, idle share {prof['device_idle_share']:.4f}")
+    timing = time_steps_from_checkpoint(dev, dirs, run)
 
-        # (d) resident corpus with on-device features
-        cfg_d = train_config(decay_learning_rate_mode=1,
-                             device_resident_corpus=True,
-                             on_device_features=True, test_interval=1000,
-                             checkpoint_interval=1000)
-        run_d = os.path.join(tmp, "run_resident")
-        state = train(run_d, dirs, cfg_d, num_steps=5, device=dev)
-        rec_d = read_metrics(os.path.join(run_d, "metrics.jsonl"), "train")
-        require([r["step"] for r in rec_d] == [1, 2, 3, 4, 5]
-                and all(np.isfinite(r["loss"]) for r in rec_d),
-                f"(d) resident run: {rec_d}")
-        with open(os.path.join(run_d, "train.log")) as fh:
-            require("resident corpus:" in fh.read(),
-                    "(d) the run did not use the resident corpus")
-        log(f"[train] (d) resident corpus, on-device features: losses "
-            f"{[round(r['loss'], 5) for r in rec_d]}")
+    # (d) resident corpus with on-device features
+    cfg_d = train_config(decay_learning_rate_mode=1,
+                         device_resident_corpus=True,
+                         on_device_features=True, test_interval=1000,
+                         checkpoint_interval=1000)
+    run_d = os.path.join(tmp, "run_resident")
+    state = train(run_d, dirs, cfg_d, num_steps=5, device=dev)
+    rec_d = read_metrics(os.path.join(run_d, "metrics.jsonl"), "train")
+    require([r["step"] for r in rec_d] == [1, 2, 3, 4, 5]
+            and all(np.isfinite(r["loss"]) for r in rec_d),
+            f"(d) resident run: {rec_d}")
+    with open(os.path.join(run_d, "train.log")) as fh:
+        require("resident corpus:" in fh.read(),
+                "(d) the run did not use the resident corpus")
+    log(f"[train] (d) resident corpus, on-device features: losses "
+        f"{[round(r['loss'], 5) for r in rec_d]}")
 
-        # (e) from training back to serving: the port's checkpoint through
-        # K1
-        synth = Synthesizer(device=dev).load(run)
-        gl_iteration.launches = 0
-        res = synth.synthesize(texts=KOREAN[:1], speaker_ids=[1],
-                               max_steps=50, fast_vocoder=True,
-                               librosa_trim=False)
-        torch.cuda.synchronize()
-        k1 = gl_iteration.launches
-        require(k1 > 0, "(e) the trained checkpoint's synthesis launched "
-                        "no fused Griffin-Lim kernel")
-        audio = check_waveforms(res, cfg.audio.hop_length, "(e)")
-        log(f"[train] (e) Synthesizer.load(run dir) at step 30: one "
-            f"sentence, 50 steps, fast vocoder: {audio} samples, K1 "
-            f"launches {k1}")
+    # (e) from training back to serving: the port's checkpoint through
+    # K1
+    synth = Synthesizer(device=dev).load(run)
+    gl_iteration.launches = 0
+    res = synth.synthesize(texts=KOREAN[:1], speaker_ids=[1],
+                           max_steps=50, fast_vocoder=True,
+                           librosa_trim=False)
+    torch.cuda.synchronize()
+    k1 = gl_iteration.launches
+    require(k1 > 0, "(e) the trained checkpoint's synthesis launched "
+                    "no fused Griffin-Lim kernel")
+    audio = check_waveforms(res, cfg.audio.hop_length, "(e)")
+    log(f"[train] (e) Synthesizer.load(run dir) at step 30: one "
+        f"sentence, 50 steps, fast vocoder: {audio} samples, K1 "
+        f"launches {k1}")
     wall = time.perf_counter() - t_phase
     log(f"[train] phase 6 wall time {wall:.1f} s")
     return {"card_vs_cpu": a, "features_max_abs": b,
             "loss_first5": first, "loss_last5": last,
             "profile": prof, "timing": timing, "k1_launches": k1,
-            "wall_s": wall}
+            "wall_s": wall, "run_dir": run, "corpus": dirs, "config": cfg}
+
+
+# ----------------------------------------------------------------- serving
+
+#: short phrases of at most 12 tokens: the server's adaptive budget gives
+#: them the 50-step rung (200 frames), the fused engine's (K1) range
+SHORT = ["안녕", "좋아요", "반가워요", "고마워요", "잘 자요"]
+
+
+def kernel_counters() -> dict:
+    from tacotron_tpu_torch.ops.kernels.gl_fused import gl_iteration
+    from tacotron_tpu_torch.ops.kernels.griffin_lim import spectral_step
+    from tacotron_tpu_torch.ops.kernels.ola import overlap_add_batched
+    return {"K1": gl_iteration, "K2": overlap_add_batched,
+            "K3": spectral_step}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+class CallLog:
+    """Wraps ``obj.name`` (on the instance) to record the kernel launch
+    counts after each call, so a step can tell its passes apart."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.after = obj, name, []
+
+    def __enter__(self):
+        inner = getattr(self.obj, self.name)
+
+        def wrapped(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            self.after.append(read_counts())
+            return out
+
+        setattr(self.obj, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.obj, self.name)
+
+
+def timed(fn):
+    """(result, wall seconds) of a call that returns host arrays."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def wav_rate(body: bytes) -> tuple:
+    """(sample rate, frames) of a WAV response body."""
+    import io
+    import wave
+    require(body[:4] == b"RIFF", f"not a WAV: {body[:16]!r}")
+    with wave.open(io.BytesIO(body)) as fh:
+        return fh.getframerate(), fh.getnframes()
+
+
+def http(port: int, method: str, path: str, body=None, ctype=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    headers = {"Content-Type": ctype} if ctype else {}
+    conn.request(method, path, body=body, headers=headers)
+    resp = conn.getresponse()
+    out = (resp.status, resp.getheader("Content-Type"), resp.read())
+    conn.close()
+    return out
+
+
+def check_server(synth, tmp: str, sr: int, long_text: str) -> dict:
+    """(e) ``make_handler`` and ``SynthWorker`` on the card synthesizer, on
+    an ephemeral port with the worker on a thread: one GET, four
+    concurrent GETs (coalesced), a long POST (the chunked route) and a
+    cached repeat."""
+    import json as _json
+    import os
+    import threading
+    import urllib.parse
+    from http.server import ThreadingHTTPServer
+
+    from tacotron_tpu_torch.app import SynthWorker, make_handler
+
+    worker = SynthWorker(synth)
+    httpd = ThreadingHTTPServer(
+        ("127.0.0.1", 0),
+        make_handler(worker, os.path.join(tmp, "web_cache"), "random"))
+    stop = threading.Event()
+
+    def serve():
+        while not stop.is_set():
+            worker.run_once()
+
+    threads = [threading.Thread(target=httpd.serve_forever, daemon=True),
+               threading.Thread(target=serve, daemon=True)]
+    for t in threads:
+        t.start()
+    port = httpd.server_address[1]
+
+    def get(text, speaker=0):
+        query = urllib.parse.urlencode({"text": text, "speaker_id": speaker})
+        return http(port, "GET", "/generate?" + query)
+
+    out = {}
+    try:
+        with CallLog(synth, "synthesize") as calls:
+            zero_counts()
+            (status, ctype, body), out["single_s"] = timed(
+                lambda: get(SHORT[0]))
+            require(status == 200 and ctype == "audio/wav",
+                    f"(e) GET: {status} {ctype} {body[:200]!r}")
+            rates, first_body = [wav_rate(body)], body
+
+            before = worker.batched_calls
+            walls = [None] * 4
+
+            def client(i):
+                t0 = time.perf_counter()
+                walls[i] = (get(SHORT[1 + i], i % 2),
+                            time.perf_counter() - t0)
+
+            burst = [threading.Thread(target=client, args=(i,))
+                     for i in range(4)]
+            t0 = time.perf_counter()
+            for t in burst:
+                t.start()
+            for t in burst:
+                t.join(300)
+            out["burst_s"] = time.perf_counter() - t0
+            require(all(w is not None and w[0][0] == 200 for w in walls),
+                    f"(e) burst: {[w and w[0][:2] for w in walls]}")
+            rates += [wav_rate(w[0][2]) for w in walls]
+            out["burst_request_s"] = [w[1] for w in walls]
+            out["batched_calls"] = worker.batched_calls - before
+            require(out["batched_calls"] > 0,
+                    "(e) four concurrent GETs were not coalesced")
+            out["launches_short"] = read_counts()
+            require(out["launches_short"]["K1"] > 0,
+                    "(e) the short requests launched no fused Griffin-Lim "
+                    "kernel")
+
+            zero_counts()
+            (status, ctype, body), out["post_s"] = timed(lambda: http(
+                port, "POST", "/generate",
+                _json.dumps({"text": long_text, "speaker_id": 1}),
+                "application/json"))
+            require(status == 200, f"(e) POST: {status} {body[:200]!r}")
+            rates.append(wav_rate(body))
+            out["launches_post"] = read_counts()
+            require(out["launches_post"]["K2"] > 0,
+                    "(e) the long POST launched no overlap-add kernel")
+
+            n_calls = len(calls.after)
+            status, _, body = get(SHORT[0])
+            require(status == 200 and body == first_body,
+                    "(e) the repeat GET was not served from the cache")
+            require(len(calls.after) == n_calls,
+                    "(e) a cached request synthesized again")
+        require(all(rate == sr and n > 0 for rate, n in rates),
+                f"(e) responses (rate, frames): {rates}")
+        out["responses"] = len(rates) + 1
+    finally:
+        stop.set()
+        worker.jobs.put(("job", lambda: None))  # wake the worker to exit
+        httpd.shutdown()
+        httpd.server_close()
+        for t in threads:
+            t.join(60)
+    return out
+
+
+def serve_phase(dev, synth, trained: dict, tmp: str) -> dict:
+    """Phase 7: the serving entry points on the card, (a)-(h) of the module
+    docstring, on phase 4's synthesizer and phase 6's run dir."""
+    import os
+
+    from tacotron_tpu_torch import compat
+    from tacotron_tpu_torch.compat.__main__ import main as compat_main
+    from tacotron_tpu_torch.eval import main as eval_main
+    from tacotron_tpu_torch.synth import Synthesizer
+    from tacotron_tpu_torch.text import text_to_sequence
+    from tacotron_tpu_torch.text.eval_sentences import EVAL_TEXTS
+    from tacotron_tpu_torch.train.checkpoint import checkpoint_steps
+    from tacotron_tpu_torch.train.driver import train
+
+    t_phase = time.perf_counter()
+    cfg = synth.config
+    sr, hop = cfg.audio.sample_rate, cfg.audio.hop_length
+    serve = {}
+    kw = dict(texts=KOREAN, speaker_ids=[0, 1, 0, 1], max_steps=50,
+              fast_vocoder=True, librosa_trim=False)
+
+    # (a) post-hoc manual attention: a decode alone, then one through K1
+    with CallLog(synth, "_forward") as passes:
+        zero_counts()
+        res, serve["manual_s"] = timed(
+            lambda: synth.synthesize(manual_attention_mode=1, **kw))
+        launches = read_counts()
+    require(len(passes.after) == 2 and passes.after[0]["K1"] == 0,
+            f"(a) passes {passes.after}")
+    require(launches["K1"] > 0, f"(a) launches {launches}")
+    serve["launches"] = {"a": launches}
+    check_waveforms(res, hop, "(a)")
+    require(all(set(np.unique(al)) <= {0.0, 1.0} for al in res["alignments"]),
+            "(a) the second pass did not attend one-hot")
+    log(f"[serve] (a) manual_attention_mode=1, 4 x 50 steps: "
+        f"{serve['manual_s']:.3f} s, launches after the first pass "
+        f"{passes.after[0]}, after the call {launches}")
+
+    # (b) the health check and the retry pass, with the sharpness gate:
+    # random weights give diffuse attention, while their soft-monotonic
+    # argmax path may still sweep the text
+    with CallLog(synth, "synthesize") as calls:
+        zero_counts()
+        res, serve["robust_s"] = timed(lambda: synth.synthesize_robust(
+            retry_mode=1, health_kwargs={"soft_monotonic": False}, **kw))
+    require(res["retried"], "(b) random weights passed the health gate")
+    require(len(calls.after) == 2 and calls.after[0]["K1"] > 0
+            and calls.after[1]["K1"] > calls.after[0]["K1"],
+            f"(b) K1 launches after each pass: {calls.after}")
+    check_waveforms(res, hop, "(b)")
+    serve["launches"]["b"] = calls.after[-1]
+    gate = res["attention_health"][0]["gate"]
+    log(f"[serve] (b) synthesize_robust(retry_mode=1), 4 x 50 steps: "
+        f"{serve['robust_s']:.3f} s, gate {gate}, retried {res['retried']}, "
+        f"focus {[round(h['focus'], 3) for h in res['attention_health']]}, "
+        f"coverage "
+        f"{[round(h['coverage'], 3) for h in res['attention_health']]}, "
+        f"launches after each pass {calls.after}")
+
+    # (c) a long paragraph: one batched call over its chunks, through K2
+    paragraph = ". ".join(EVAL_TEXTS[:5]) + "."
+    n_tokens = len(text_to_sequence(paragraph, synth.cleaner_names()))
+    with CallLog(synth, "synthesize") as calls:
+        zero_counts()
+        out, serve["long_s"] = timed(lambda: synth.synthesize_long(
+            paragraph, speaker_id=1, max_chunk_tokens=120, robust=False,
+            fast_vocoder=True, librosa_trim=False))
+        launches = read_counts()
+    chunks = out["chunks"]
+    require(n_tokens > 240 and len(chunks) >= 3,
+            f"(c) {n_tokens} tokens in {len(chunks)} chunks")
+    require(len(calls.after) == 1, f"(c) {len(calls.after)} synthesize calls")
+    require(launches["K2"] > 0, f"(c) launches {launches}")
+    serve["launches"]["c"] = launches
+    check_waveforms(out["parts"], hop, "(c)")
+    gaps = sum(int(sr * (0.18 if c.rstrip()[-1] in ".!?" else 0.08))
+               for c in chunks[:-1])
+    require(out["wav"].size == sum(w.size for w in out["parts"]["wavs"])
+            + gaps, "(c) stitched length is not the pieces plus the gaps")
+    require(np.isfinite(out["wav"]).all(), "(c) waveform not finite")
+    serve["long_audio_s"] = out["wav"].size / sr
+    log(f"[serve] (c) synthesize_long: {n_tokens} tokens in {len(chunks)} "
+        f"chunks, {serve['long_s']:.3f} s for {serve['long_audio_s']:.2f} s "
+        f"of audio, launches {launches}")
+
+    # (d) host and spectrogram-only vocoding against the chip's decode
+    kw2 = dict(texts=KOREAN[:2], speaker_ids=[0, 1], max_steps=50,
+               fast_vocoder=True, librosa_trim=False)
+    decoded = []
+    hook = synth.model.register_forward_hook(
+        lambda m, a, o: decoded.append(o["linear_outputs"].float().cpu()))
+    try:
+        chip, serve["chip_s"] = timed(lambda: synth.synthesize(**kw2))
+    finally:
+        hook.remove()
+    results = {}
+    for vocode in ("none", "host"):
+        zero_counts()
+        results[vocode], serve[f"{vocode}_s"] = timed(
+            lambda: synth.synthesize(vocode=vocode, **kw2))
+        require(read_counts() == {"K1": 0, "K2": 0, "K3": 0},
+                f"(d) vocode={vocode} launched {read_counts()}")
+        require(results[vocode]["ends"] == chip["ends"],
+                f"(d) vocode={vocode} ends {results[vocode]['ends']} != "
+                f"chip {chip['ends']}")
+    card = decoded[0].numpy()
+    lin_err = max(float(np.abs(spec - card[i, :len(spec)]).max())
+                  / float(np.abs(card[i]).max())
+                  for i, spec in enumerate(results["none"]["linear"]))
+    require(lin_err <= 1e-3, f"(d) linear differs from the chip decode by "
+                             f"{lin_err} of the peak")
+    for wav, end in zip(results["host"]["wavs"], results["host"]["ends"]):
+        # the host inversion gives (frames - 1) hops, as in JAX
+        require(wav.size == (end - 1) * hop and np.isfinite(wav).all()
+                and float(np.abs(wav).max()) > 0.0,
+                f"(d) host: {wav.size} samples for {end} frames")
+    require(all(w.size == 0 for w in results["none"]["wavs"]),
+            "(d) vocode='none' returned audio")
+    log(f"[serve] (d) 2 x 50 steps: chip {serve['chip_s']:.3f} s, host "
+        f"{serve['host_s']:.3f} s, none {serve['none_s']:.3f} s, ends "
+        f"{chip['ends']}, linear vs the chip decode {lin_err:.3e} of the "
+        f"peak")
+
+    # (e) the HTTP server
+    serve.update(check_server(synth, tmp, sr,
+                              ". ".join(EVAL_TEXTS[5:]) + "."))
+    serve["launches"].update(e_short=serve["launches_short"],
+                             e_post=serve["launches_post"])
+    log(f"[serve] (e) server: one GET {serve['single_s']:.3f} s, burst of 4 "
+        f"{serve['burst_s']:.3f} s (requests "
+        f"{[round(x, 3) for x in serve['burst_request_s']]}), coalesced "
+        f"calls {serve['batched_calls']}, long POST {serve['post_s']:.3f} s,"
+        f" launches short {serve['launches_short']} post "
+        f"{serve['launches_post']}, {serve['responses']} WAV responses at "
+        f"{sr} Hz")
+
+    # (f) the eval CLI on phase 6's run dir
+    run = trained["run_dir"]
+    samples = os.path.join(tmp, "eval_samples")
+    t0 = time.perf_counter()
+    eval_main(["--load_path_pattern", run, "--sample_path", samples,
+               "--attention_retry", "1", "--max_steps", "50",
+               "--texts", *KOREAN[:2]])
+    serve["eval_s"] = time.perf_counter() - t0
+    d = os.path.join(samples, os.path.basename(run), "speaker0")
+    names = sorted(os.listdir(d))
+    require([n for n in names if n.endswith(".wav")]
+            == ["eval000_0.wav", "eval000_1.wav"], f"(f) wrote {names}")
+    log(f"[serve] (f) eval CLI with --attention_retry 1: {names} in "
+        f"{serve['eval_s']:.1f} s")
+
+    # (g) TF1 interchange: export, import, the same waveforms, a resume
+    prefix = os.path.join(tmp, "tf1", "model.ckpt-30")
+    imported = os.path.join(tmp, "run_imported")
+    t0 = time.perf_counter()
+    require(compat_main(["export", run, prefix]) == 0, "(g) export failed")
+    require(compat_main(["import", prefix, "--run_dir", imported, "--config",
+                         os.path.join(run, "config.json")]) == 0,
+            "(g) import failed")
+    n_vars = len(compat.read_checkpoint(prefix))
+    wavs = [Synthesizer(dev).load(r).synthesize(
+        texts=KOREAN[:1], speaker_ids=[1], max_steps=50, fast_vocoder=True,
+        librosa_trim=False)["wavs"][0] for r in (run, imported)]
+    require(wavs[0].size > 0 and np.array_equal(wavs[0], wavs[1]),
+            "(g) the imported run dir does not give bit-identical audio")
+    state = train(imported, trained["corpus"], trained["config"],
+                  num_steps=1, device=dev)
+    require(state.step == 1 and checkpoint_steps(imported) == [0, 1],
+            f"(g) resume: step {state.step}, checkpoints "
+            f"{checkpoint_steps(imported)}")
+    serve["compat_s"] = time.perf_counter() - t0
+    log(f"[serve] (g) compat: {n_vars} TF1 variables, export -> import -> "
+        f"bit-identical waveforms ({wavs[0].size} samples), resumed to step "
+        f"1, {serve['compat_s']:.1f} s")
+
+    serve["wall_s"] = time.perf_counter() - t_phase
+    return serve
 
 
 def main() -> int:
@@ -979,13 +1352,27 @@ def main() -> int:
         k["launches_by_call"] = {c: v[name]
                                  for c, v in main["launches"].items()}
     kernels.append(check_k4(dev, main["synth"], rng))
-    trained = train_phase(dev)
-    timing = trained["timing"]
-    log(f"[train] batch 16, full width: median {timing['sec_per_step']:.4f} "
-        f"sec/step, {timing['target_frames_per_s']:.1f} target frames/s, "
-        f"peak memory {timing['peak_memory_gib']:.2f} GiB, device idle "
-        f"share of steps 11-15 {trained['profile']['device_idle_share']:.4f}"
-        f" on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = train_phase(dev, tmp)
+        timing = trained["timing"]
+        log(f"[train] batch 16, full width: median "
+            f"{timing['sec_per_step']:.4f} sec/step, "
+            f"{timing['target_frames_per_s']:.1f} target frames/s, peak "
+            f"memory {timing['peak_memory_gib']:.2f} GiB, device idle share "
+            f"of steps 11-15 {trained['profile']['device_idle_share']:.4f} "
+            f"on {card}")
+        serve = serve_phase(dev, main["synth"], trained, tmp)
+    for k, name in zip(kernels, ("K1", "K2", "K3")):
+        k["launches_serving"] = {step: v[name]
+                                 for step, v in serve["launches"].items()}
+    burst = serve["burst_request_s"]
+    log(f"[serve] one request {serve['single_s']:.4f} s; burst of 4: "
+        f"{statistics.mean(burst):.4f} s per request (max {max(burst):.4f}); "
+        f"synthesize_long {serve['long_s']:.4f} s "
+        f"({serve['long_audio_s']:.2f} s audio); robust {serve['robust_s']:.4f}"
+        f" s (manual mode {serve['manual_s']:.4f} s); vocode host "
+        f"{serve['host_s']:.4f} s vs chip {serve['chip_s']:.4f} s on the same "
+        f"2 texts; phase 7 wall time {serve['wall_s']:.1f} s on {card}")
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")

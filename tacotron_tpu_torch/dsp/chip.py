@@ -39,11 +39,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels import gl_fused, griffin_lim
+from ..ops.kernels import gl_fused
+from ..ops.kernels import griffin_lim as spectral
 from ..ops.kernels.gl_fused import round_bf16
 from ..ops.kernels.ola import (device_constant, overlap_add_batched,
                                overlap_add_reference, window_tensor)
-from .primitives import mel_basis
+from .primitives import inv_mel_basis, mel_basis
+
+
+def num_frames(num_samples: int, config) -> int:
+    """STFT frames of a ``num_samples`` signal (centered framing)."""
+    return 1 + num_samples // config.hop_length
 
 
 def frame_signal(y: torch.Tensor, config) -> torch.Tensor:
@@ -325,7 +331,7 @@ def _griffin_lim_matmul(magnitude: torch.Tensor, num_samples: int,
                         config) -> torch.Tensor:
     """The dense DFT pair as bf16 matrix products, with the JAX engine's own
     phase formula (``re / max(1e-8, |z|)``) and the plain overlap-add."""
-    dft_re, dft_im, idft_re, idft_im = griffin_lim.dft_tensors(
+    dft_re, dft_im, idft_re, idft_im = spectral.dft_tensors(
         config.n_fft, magnitude.device)
 
     def istft_mm(re, im):
@@ -373,7 +379,7 @@ def _griffin_lim_pallas_batched(magnitude: torch.Tensor, num_samples: int,
     framing and the overlap-add around it."""
     B, T, _ = magnitude.shape
     n_fft = config.n_fft
-    _, _, idft_re, _ = griffin_lim.dft_tensors(n_fft, magnitude.device)
+    _, _, idft_re, _ = spectral.dft_tensors(n_fft, magnitude.device)
     mag_rows = magnitude.reshape(B * T, -1).contiguous()
     ola = _ola_fn(config, num_samples, magnitude.device)
 
@@ -383,7 +389,7 @@ def _griffin_lim_pallas_batched(magnitude: torch.Tensor, num_samples: int,
 
     def gl_update(y):
         frames = frame_signal(y, config).reshape(B * T, n_fft)
-        new = griffin_lim.spectral_step(frames, mag_rows, n_fft)
+        new = spectral.spectral_step(frames, mag_rows, n_fft)
         return ola(new.reshape(B, T, n_fft))
 
     return gl_loop(gl_update, y, config)
@@ -444,6 +450,13 @@ def griffin_lim_batched(magnitude: torch.Tensor, num_samples: int,
     """Phase reconstruction [B, n_frames, n_freq] -> [B, num_samples]."""
     impl = resolve_engine(config, magnitude.shape[1], magnitude.device)
     return _ENGINES[impl](magnitude, num_samples, config)
+
+
+def griffin_lim(magnitude: torch.Tensor, num_samples: int,
+                config) -> torch.Tensor:
+    """One utterance [n_frames, n_freq] -> [num_samples]: a batch of one of
+    :func:`griffin_lim_batched`."""
+    return griffin_lim_batched(magnitude[None], num_samples, config)[0]
 
 
 # ------------------------------------------------------------- scaling chain
@@ -548,3 +561,24 @@ def batched_linear_to_waveform(specs: torch.Tensor, config) -> torch.Tensor:
     S = db_to_amp(denormalize_db(specs, config) + config.ref_level_db)
     wavs = griffin_lim_batched(S ** config.power, num_samples, config)
     return inv_preemphasis(wavs, config)
+
+
+def linear_to_waveform(spec: torch.Tensor, config) -> torch.Tensor:
+    """One normalized linear spectrogram [n_frames, n_freq] -> waveform
+    [(n_frames - 1) * hop]."""
+    return batched_linear_to_waveform(spec[None], config)[0]
+
+
+def mel_to_waveform(mel: torch.Tensor, config) -> torch.Tensor:
+    """One normalized mel spectrogram [n_frames, n_mels] -> waveform
+    [(n_frames - 1) * hop], through the pseudo-inverse of the filterbank."""
+    num_samples = (mel.shape[0] - 1) * config.hop_length
+    amp = db_to_amp(denormalize_db(mel, config))
+    inv_basis_t = device_constant(
+        ("inv_mel_t", config.sample_rate, config.n_fft, config.num_mels),
+        lambda: np.ascontiguousarray(inv_mel_basis(
+            config.sample_rate, config.n_fft, config.num_mels).T.astype(
+                np.float32)), mel.device)
+    S = torch.clamp(amp @ inv_basis_t, min=1e-10)
+    y = griffin_lim(S ** config.power, num_samples, config)
+    return inv_preemphasis(y, config)

@@ -4,6 +4,7 @@
     python -m tacotron_tpu_torch.synth --load_npz weights.npz \
         --config config.json "text"
     python -m tacotron_tpu_torch.synth --load_path logs/run_x "text"
+    python -m tacotron_tpu_torch.synth --load_path logs/run_x --long "..."
 
 Runs on the card; ``--device cpu`` runs on the CPU instead.
 """
@@ -36,9 +37,23 @@ def main(argv=None) -> None:
                              "a card)")
     parser.add_argument("--sample_path", default="samples")
     parser.add_argument("--speaker_id", type=int, default=0)
+    parser.add_argument("--checkpoint_step", type=int, default=None,
+                        help="checkpoint of --load_path (default: newest)")
     parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--manual_attention_mode", type=int, default=0,
+                        choices=[0, 1, 2, 3],
+                        help="post-hoc attention: 0=off, 1=argmax one-hot, "
+                             "2=sharpen, 3=prune")
     parser.add_argument("--no_attention_trim", action="store_true")
     parser.add_argument("--no_librosa_trim", action="store_true")
+    parser.add_argument("--vocode", default="chip",
+                        choices=["chip", "host", "none"],
+                        help="chip: Griffin-Lim on the device; host: numpy "
+                             "Griffin-Lim; none: spectrograms only")
+    parser.add_argument("--long", action="store_true",
+                        help="treat each text as a long document: "
+                             "sentence-split, decode the chunks in one "
+                             "batched call, stitch with silence")
     parser.add_argument("--fast_vocoder", action="store_true",
                         help="30 momentum Griffin-Lim iterations")
     args = parser.parse_args(argv)
@@ -48,9 +63,12 @@ def main(argv=None) -> None:
     if sum(sources) != 1:
         parser.error("pass exactly one of --random_init, --load_npz and "
                      "--load_path")
+    if args.long and args.manual_attention_mode:
+        parser.error("--long and --manual_attention_mode are mutually "
+                     "exclusive")
     synth = Synthesizer(device=args.device)
     if args.load_path:
-        synth.load(args.load_path)
+        synth.load(args.load_path, step=args.checkpoint_step)
     else:
         config = load_config(args.config) if args.config else Config()
         if args.random_init:
@@ -58,13 +76,22 @@ def main(argv=None) -> None:
         else:
             synth.load_npz(args.load_npz, config)
 
-    results = synth.synthesize(
-        texts=args.text,
-        speaker_ids=[args.speaker_id] * len(args.text),
-        max_steps=args.max_steps,
-        attention_trim=not args.no_attention_trim,
-        librosa_trim=not args.no_librosa_trim,
-        fast_vocoder=args.fast_vocoder)
+    kwargs = dict(max_steps=args.max_steps,
+                  attention_trim=not args.no_attention_trim,
+                  librosa_trim=not args.no_librosa_trim, vocode=args.vocode,
+                  fast_vocoder=args.fast_vocoder)
+    if args.long:
+        results = {"wavs": [], "alignments": []}
+        for text in args.text:
+            out = synth.synthesize_long(text, speaker_id=args.speaker_id,
+                                        robust=False, **kwargs)
+            print(f"[*] split into {len(out['chunks'])} chunk(s)")
+            results["wavs"].append(out["wav"])
+            results["alignments"].append(None)
+    else:
+        results = synth.synthesize(
+            texts=args.text, speaker_ids=[args.speaker_id] * len(args.text),
+            manual_attention_mode=args.manual_attention_mode, **kwargs)
     for p in synth.save_results(results, args.sample_path):
         print(f"[*] saved {p} ({os.path.getsize(p)} bytes)")
 

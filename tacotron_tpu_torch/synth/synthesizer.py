@@ -7,9 +7,15 @@ each utterance at its attention end, vocodes the masked spectrograms and
 packs the peak-normalized waveform with two extra rows (the frame ends and
 the normalization denominator in dB x 100), so the host fetches one array.
 
-Not in this slice (they raise ``NotImplementedError``): ``vocode="host"`` /
-``"none"``, ``manual_attention_mode > 0``; ``synthesize_robust``,
-``synthesize_long``, ``prewarm`` and sharded synthesis are not ported yet.
+``vocode="host"`` decodes on the device and inverts the fetched
+spectrograms with the numpy Griffin-Lim of ``dsp/host.py``; ``"none"``
+returns the spectrograms only.  ``manual_attention_mode`` re-decodes with
+post-hoc manual alignments (:func:`posthoc_attention`),
+:meth:`Synthesizer.synthesize_robust` retries the utterances that fail
+:func:`attention_health`, and :meth:`Synthesizer.synthesize_long` splits a
+text of any length (:func:`split_text`), decodes the chunks in one batched
+call and stitches them with silence.  ``prewarm`` and sharded synthesis are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import re
+import time
 import warnings
 import wave
 from typing import Dict, List, Optional, Sequence
@@ -26,6 +34,7 @@ import torch
 
 from ..config import Config
 from ..dsp import chip as dsp_chip
+from ..dsp import host as dsp_host
 from ..models.tacotron import Tacotron
 from ..params import from_flax, init_random_, load_npz
 from ..text import text_to_sequence
@@ -78,6 +87,117 @@ def mulaw_decode(codes: np.ndarray) -> np.ndarray:
     return _MULAW_TABLE[codes]
 
 
+#: sentence-final punctuation (the longer stitch gap, and the primary split
+#: points of :func:`split_text`)
+_SENT_FINAL = ".!?"
+#: split after sentence punctuation only when whitespace follows, so
+#: decimals ("2.5를") and quoted punctuation never split; zero-width split
+#: points drop no text
+_SENT_SPLIT_RE = re.compile(r"(?<=[.!?])\s+")
+#: secondary split points inside an oversized sentence
+_CLAUSE_SPLIT_RE = re.compile(r"(?<=[,;:·])\s*")
+
+
+def split_text(text: str, max_chunk_tokens: int,
+               cleaners: Sequence[str],
+               symbol_set: str = "korean") -> List[str]:
+    """Split ``text`` into chunks of at most ``max_chunk_tokens`` frontend
+    tokens (counted with :func:`text_to_sequence`), cutting at sentence
+    boundaries first, then at clause punctuation, then at word boundaries,
+    and last inside an unbroken run; consecutive short pieces are packed
+    into one chunk."""
+
+    def ntok(s: str) -> int:
+        return len(text_to_sequence(s, list(cleaners), symbol_set=symbol_set))
+
+    def atoms(s: str) -> List[str]:
+        """Pieces of ``s`` that each fit the budget."""
+        if ntok(s) <= max_chunk_tokens:
+            return [s]
+        out: List[str] = []
+        clauses = [c for c in _CLAUSE_SPLIT_RE.split(s) if c.strip()]
+        if len(clauses) == 1:
+            clauses = s.split()
+        for c in clauses:
+            if ntok(c) <= max_chunk_tokens:
+                out.append(c)
+            else:  # single clause still too big: split on words
+                def hard(word: str) -> List[str]:
+                    """Character-level split of one over-budget word (URLs,
+                    long digit strings, CJK without spaces), which the
+                    decode-step cap would otherwise truncate."""
+                    if ntok(word) <= max_chunk_tokens:
+                        return [word]
+                    parts: List[str] = []
+                    acc = ""
+                    for ch in word:
+                        cand = acc + ch
+                        if acc and ntok(cand) > max_chunk_tokens:
+                            parts.append(acc)
+                            acc = ch
+                        else:
+                            acc = cand
+                    if acc:
+                        parts.append(acc)
+                    return parts
+
+                words = [p for w in c.split() for p in hard(w)]
+                cur = ""
+                for w in words:
+                    cand = (cur + " " + w).strip()
+                    if cur and ntok(cand) > max_chunk_tokens:
+                        out.append(cur)
+                        cur = w
+                    else:
+                        cur = cand
+                if cur:
+                    out.append(cur)
+        return out
+
+    sentences = [s for s in _SENT_SPLIT_RE.split(text) if s.strip()]
+    pieces: List[str] = []
+    for s in sentences:
+        pieces.extend(atoms(s.strip()))
+
+    # greedy packing of consecutive pieces
+    chunks: List[str] = []
+    cur = ""
+    for p in pieces:
+        cand = (cur + " " + p).strip()
+        if cur and ntok(cand) > max_chunk_tokens:
+            chunks.append(cur)
+            cur = p
+        else:
+            cur = cand
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def attention_trim_index(alignment: np.ndarray, seq_len: int,
+                         reduction_factor: int) -> int:
+    """Spectrogram-frame index to cut at, from the argmax path of one
+    [T_in, T_dec] alignment (the reference's ``synthesizer.py:242-263``);
+    :func:`attention_trim_frames` is the batched device version."""
+    attention_argmax = alignment.argmax(0)  # [T_dec]
+    end_idx = min(seq_len - 1, int(attention_argmax.max()))
+    max_counter = min(int((attention_argmax == end_idx).sum()), 5)
+    end_idx_counter = 0
+    jdx = 0
+    for jdx, attend_idx in enumerate(attention_argmax):
+        if len(attention_argmax) > jdx + 1:
+            if attend_idx == end_idx:
+                end_idx_counter += 1
+            if (attend_idx == end_idx
+                    and attention_argmax[jdx + 1] > end_idx):
+                break
+            if end_idx_counter >= max_counter:
+                break
+        else:
+            break
+    return reduction_factor * jdx + 3
+
+
 def attention_trim_frames(alignments: torch.Tensor,
                           input_lengths: torch.Tensor,
                           reduction_factor: int) -> torch.Tensor:
@@ -106,33 +226,14 @@ def attention_trim_frames(alignments: torch.Tensor,
     return reduction_factor * jdx + 3
 
 
-def frame_rms(audio: np.ndarray, frame_length: int, hop_length: int):
-    """Frame matrix and per-frame RMS of a 1-D signal
-    (``len(audio) >= frame_length``)."""
-    n_frames = 1 + (len(audio) - frame_length) // hop_length
-    idx = (np.arange(frame_length)[None, :]
-           + hop_length * np.arange(n_frames)[:, None])
-    frames = audio[idx]
-    return frames, np.sqrt(np.mean(frames ** 2, axis=1))
-
-
-def rms_db_below_peak(rms: np.ndarray) -> Optional[np.ndarray]:
-    """Per-frame level in dB below the peak frame RMS (floored at -200 dB);
-    None for an all-silent signal."""
-    ref = float(rms.max()) if rms.size else 0.0
-    if ref <= 0:
-        return None
-    return 20.0 * np.log10(np.maximum(rms / ref, 1e-10))
-
-
 def trim_silence_db(audio: np.ndarray, top_db: float = 50.0,
                     frame_length: int = 5120,
                     hop_length: int = 256) -> np.ndarray:
     """Drop the trailing silence below ``top_db`` under the peak RMS."""
     if audio.size < frame_length:
         return audio
-    _, rms = frame_rms(audio, frame_length, hop_length)
-    db = rms_db_below_peak(rms)
+    _, rms = dsp_host.frame_rms(audio, frame_length, hop_length)
+    db = dsp_host.rms_db_below_peak(rms)
     if db is None:
         return audio
     nonsilent = np.flatnonzero(db > -top_db)
@@ -141,6 +242,77 @@ def trim_silence_db(audio: np.ndarray, top_db: float = 50.0,
     end = min(len(audio),
               int(nonsilent[-1] + 1) * hop_length + frame_length)
     return audio[:end]
+
+
+def posthoc_attention(alignments: np.ndarray, mode: int) -> np.ndarray:
+    """Post-hoc manual-attention transforms of [N, T_in, T_dec] alignments
+    (the reference's ``synthesizer.py:171-205``): 1 = argmax one-hot,
+    2 = sharpen (power 2, renormalized over the input), 3 = prune (the
+    shipped reference code for 3 equals 1)."""
+    out = np.zeros_like(alignments)
+    if mode in (1, 3):
+        for i, al in enumerate(alignments):      # al: [T_in, T_dec]
+            argmax = al.argmax(0)
+            out[i][(argmax, np.arange(len(argmax)))] = 1.0
+        return out
+    if mode == 2:
+        sq = alignments ** 2
+        denom = np.maximum(sq.sum(axis=1, keepdims=True), 1e-8)
+        return sq / denom
+    raise ValueError(f"unknown manual_attention_mode {mode}")
+
+
+def attention_health(alignment: np.ndarray,
+                     coverage_threshold: float = 0.2,
+                     min_coverage: float = 0.5,
+                     min_focus: float = 0.25,
+                     min_monotonicity: float = 0.6,
+                     soft_monotonic: bool = False) -> Dict[str, float]:
+    """Per-utterance diagnostics of one [T_in, T_dec] alignment (cropped to
+    the true input length):
+
+    - ``coverage``: the share of input tokens whose attention peaks above
+      ``coverage_threshold`` (collapsed attention skips text);
+    - ``focus``: the mean over decode steps of the largest weight (diffuse
+      attention mumbles);
+    - ``monotonicity``: the share of steps whose argmax moves back by at
+      most 2 tokens;
+    - ``path_coverage``: the share of input tokens the argmax path comes
+      within 2 positions of.
+
+    Two gate families: ``ok_sharpness`` (coverage, focus, monotonicity)
+    and ``ok_soft_monotonic`` (path coverage, monotonicity), for
+    soft-monotonic attention (``bah_mon``), whose weights are wide even when
+    perfectly aligned.  ``ok`` is the family ``soft_monotonic`` selects,
+    named by ``gate``; both verdicts are always reported, so comparisons
+    across attention types see which bar each decode met.
+    """
+    alignment = np.asarray(alignment, np.float32)
+    coverage = float((alignment.max(axis=1)
+                      > coverage_threshold).mean())
+    focus = float(alignment.max(axis=0).mean())
+    path = alignment.argmax(axis=0)
+    monotonicity = (1.0 if len(path) < 2 else
+                    float((np.diff(path) >= -2).mean()))
+    n_in = alignment.shape[0]
+    visited = np.zeros(n_in, bool)
+    for p in np.unique(path):
+        visited[max(0, p - 2):p + 3] = True
+    path_coverage = float(visited.mean())
+    ok_soft = bool(path_coverage >= min_coverage
+                   and monotonicity >= min_monotonicity)
+    ok_sharp = bool(coverage >= min_coverage and focus >= min_focus
+                    and monotonicity >= min_monotonicity)
+    return {
+        "ok": ok_soft if soft_monotonic else ok_sharp,
+        "gate": "soft_monotonic" if soft_monotonic else "sharpness",
+        "ok_sharpness": ok_sharp,
+        "ok_soft_monotonic": ok_soft,
+        "coverage": coverage,
+        "focus": focus,
+        "monotonicity": monotonicity,
+        "path_coverage": path_coverage,
+    }
 
 
 def resolve_device(device=None) -> torch.device:
@@ -211,7 +383,8 @@ class Synthesizer:
 
     def load(self, run_dir: str, step: Optional[int] = None
              ) -> "Synthesizer":
-        """Weights and config of a run directory the port's trainer wrote
+        """Weights and config of a run directory the port's trainer (or
+        ``python -m tacotron_tpu_torch.compat import``) wrote
         (``config.json`` and ``checkpoints/<step>/variables.npz``): the
         checkpoint at ``step``, default the newest."""
         from ..train.checkpoint import checkpoint_path, load_run_config
@@ -222,6 +395,16 @@ class Synthesizer:
         return list(self.config.data.cleaner_names())
 
     # ------------------------------------------------------- device program
+
+    @torch.inference_mode()
+    def _forward(self, inputs, input_lengths, speaker_id, manual, is_manual,
+                 max_steps: int) -> Dict[str, torch.Tensor]:
+        """The greedy decode alone: ``linear_outputs`` [N, steps*r, F],
+        ``mel_outputs`` and ``alignments`` [N, T_in, steps] on the
+        device."""
+        return self.model(inputs, input_lengths, speaker_id=speaker_id,
+                          max_steps=max_steps, manual_alignments=manual,
+                          is_manual=is_manual)
 
     @torch.inference_mode()
     def _vocode_chunk(self, inputs, input_lengths, speaker_id, manual,
@@ -235,9 +418,8 @@ class Synthesizer:
             audio_cfg = dataclasses.replace(
                 audio_cfg, griffin_lim_iters=30, griffin_lim_momentum=0.99)
         r = self.config.model.reduction_factor
-        out = self.model(inputs, input_lengths, speaker_id=speaker_id,
-                         max_steps=max_steps, manual_alignments=manual,
-                         is_manual=is_manual)
+        out = self._forward(inputs, input_lengths, speaker_id, manual,
+                            is_manual, max_steps)
         linear = out["linear_outputs"]                 # [N, steps*r, F]
         aligns = out["alignments"]                     # [N, T_in, steps]
         N, n_frames, _ = linear.shape
@@ -285,32 +467,47 @@ class Synthesizer:
                    token_bucket: int = 32,
                    return_alignments: bool = True,
                    fast_vocoder: bool = False,
+                   collect_timings: bool = False,
                    wire_format: str = "int16",
                    ) -> Dict[str, List]:
         """texts -> waveforms.
 
-        Returns ``wavs`` (float32 at true Griffin-Lim amplitude: the peak
-        normalization of the wire is undone), ``alignments`` ([T_in, T_dec]
-        each, cropped to the text), ``linear`` (None: the spectrograms stay
-        on the device), ``sequences`` and ``ends`` (the trimmed frame count
-        of each utterance).  ``max_steps=None`` picks the decode budget from
-        the longest text (:func:`adaptive_max_steps`); ``fast_vocoder``
-        runs 30 momentum-0.99 Griffin-Lim iterations instead of 60 classic
-        ones; ``wire_format="mulaw8"`` packs 8-bit mu-law.
+        Returns ``wavs`` (float32 at true Griffin-Lim amplitude: the chip
+        path undoes the peak normalization of its wire), ``alignments``
+        ([T_in, T_dec] each, cropped to the text), ``linear``,
+        ``sequences`` and ``ends`` (the trimmed frame count of each
+        utterance).  ``max_steps=None`` picks the decode budget from the
+        longest text (:func:`adaptive_max_steps`).
+
+        ``vocode``: ``"chip"`` runs the whole chain on the device
+        (``linear`` is None: the spectrograms stay there); ``"host"``
+        fetches the trimmed spectrograms ([T_dec*r, F] each, in ``linear``)
+        and inverts them with the numpy Griffin-Lim; ``"none"`` returns the
+        spectrograms and empty waveforms.
+
+        ``manual_attention_mode`` 1-3 decodes once for the alignments,
+        applies :func:`posthoc_attention` and decodes again with them as
+        manual alignments.  ``fast_vocoder`` (chip path) runs 30
+        momentum-0.99 Griffin-Lim iterations instead of 60 classic ones;
+        ``wire_format="mulaw8"`` (chip path) packs 8-bit mu-law.
+        ``return_alignments=False`` (chip path) skips fetching the
+        alignments.
+
+        ``collect_timings=True`` (chip path) adds ``timings``: the phases
+        ``frontend_ms`` (text -> padded ids), ``dispatch_ms`` (the device
+        programs' launches), ``device_ms`` (until a one-element fetch from
+        the last chunk returns), ``fetch_ms`` (the bulk copy), ``post_ms``
+        (host unpack and trim) and ``total_ms``.
         """
         if self.model is None:
             raise RuntimeError("call init_random() or load_variables() first")
+        t_start = time.perf_counter() if collect_timings else 0.0
         if vocode not in ("chip", "host", "none"):
             raise ValueError(f"unknown vocode mode {vocode!r}")
-        if vocode != "chip":
-            raise NotImplementedError(
-                f"vocode={vocode!r} is not ported yet; use vocode='chip'")
         if wire_format not in ("int16", "mulaw8"):
             raise ValueError(f"unknown wire_format {wire_format!r}")
-        if manual_attention_mode > 0:
-            raise NotImplementedError(
-                "manual_attention_mode > 0 (post-hoc attention) is not "
-                "ported yet")
+        if wire_format != "int16" and vocode != "chip":
+            raise ValueError("wire_format applies to the chip path only")
         cfg = self.config
         dev = self.device
         if sequences is None:
@@ -350,56 +547,109 @@ class Synthesizer:
             man[:, :min(steps, src.shape[1]), :min(bucket, src.shape[2])] = \
                 src[:, :steps, :bucket]
 
+        def on_device(arr):
+            return None if arr is None else torch.from_numpy(arr).to(dev)
+
+        if manual_attention_mode > 0:
+            # first pass for the computed alignments only, then decode again
+            # with their post-hoc transform as manual alignments
+            out = self._forward(on_device(inputs), on_device(input_lengths),
+                                on_device(spk), on_device(man), is_manual,
+                                steps)
+            new_man = posthoc_attention(out["alignments"].cpu().numpy(),
+                                        manual_attention_mode)
+            return self.synthesize(
+                sequences=sequences, speaker_ids=speaker_ids,
+                max_steps=steps, manual_alignments=new_man,
+                attention_trim=attention_trim, librosa_trim=librosa_trim,
+                vocode=vocode, token_bucket=token_bucket,
+                return_alignments=return_alignments,
+                fast_vocoder=fast_vocoder, collect_timings=collect_timings,
+                wire_format=wire_format)
+
         r = cfg.model.reduction_factor
         hop = cfg.audio.hop_length
         full_frames = steps * r
-
-        def padded(arr, nb, fill, lo, hi):
-            out = np.full((nb,) + arr.shape[1:], fill, arr.dtype)
-            out[:hi - lo] = arr[lo:hi]
-            return torch.from_numpy(out).to(dev)
-
-        pending = []
-        for lo in range(0, N, self.VOCODER_MAX_BATCH):
-            hi = min(N, lo + self.VOCODER_MAX_BATCH)
-            nb = 1 << (hi - lo - 1).bit_length()  # power-of-two chunk
-            pending.append((lo, hi, self._vocode_chunk(
-                padded(inputs, nb, 0, lo, hi),
-                padded(input_lengths, nb, 1, lo, hi),
-                None if spk is None else padded(spk, nb, 0, lo, hi),
-                None if man is None else padded(man, nb, 0, lo, hi),
-                is_manual, steps, attention_trim, fast_vocoder,
-                wire_format)))
-        fetched = [(lo, hi, packed.cpu().numpy(),
-                    al.cpu().numpy() if return_alignments else None)
-                   for lo, hi, (packed, al) in pending]
-
         wavs: List[np.ndarray] = []
         aligns: List[np.ndarray] = []
         all_ends: List[int] = []
-        for lo, hi, packed, al in fetched:
-            if wire_format == "mulaw8":
-                wav_rows = mulaw_decode(packed[:-4])
-                ends = (packed[-4].astype(np.int32)
-                        | (packed[-3].astype(np.int32) << 8))
-                denom_db = ((packed[-2].astype(np.int32)
-                             | (packed[-1].astype(np.int32) << 8))
-                            - 32768).astype(np.float32) / 100.0
-                scale = 10.0 ** (denom_db / 20.0)
-            else:
-                wav_rows = packed[:-2]
-                ends = packed[-2].astype(np.int32)
-                scale = (10.0 ** (packed[-1].astype(np.float32) / 100.0
-                                  / 20.0)) / 32767.0
-            for i in range(hi - lo):
-                all_ends.append(int(ends[i]))
-                n_samples = min(wav_rows.shape[1], int(ends[i]) * hop)
-                wavs.append(wav_rows[i, :n_samples].astype(np.float32)
-                            * np.float32(scale[i]))
-                if al is not None:
-                    aligns.append(al[i, :seq_lens[lo + i], :])
+        specs: Optional[List[np.ndarray]] = None
+        timings: Optional[Dict[str, float]] = None
+        t_frontend = time.perf_counter() if collect_timings else 0.0
 
-        if librosa_trim:
+        if vocode == "chip":
+            def padded(arr, nb, fill, lo, hi):
+                out = np.full((nb,) + arr.shape[1:], fill, arr.dtype)
+                out[:hi - lo] = arr[lo:hi]
+                return torch.from_numpy(out).to(dev)
+
+            pending = []
+            for lo in range(0, N, self.VOCODER_MAX_BATCH):
+                hi = min(N, lo + self.VOCODER_MAX_BATCH)
+                nb = 1 << (hi - lo - 1).bit_length()  # power-of-two chunk
+                pending.append((lo, hi, self._vocode_chunk(
+                    padded(inputs, nb, 0, lo, hi),
+                    padded(input_lengths, nb, 1, lo, hi),
+                    None if spk is None else padded(spk, nb, 0, lo, hi),
+                    None if man is None else padded(man, nb, 0, lo, hi),
+                    is_manual, steps, attention_trim, fast_vocoder,
+                    wire_format)))
+            if collect_timings:
+                t_dispatch = time.perf_counter()
+                # chunks run in launch order: a one-element fetch from the
+                # last returns once every chunk's device work is done
+                float(pending[-1][2][0][0, 0])
+                t_device = time.perf_counter()
+            fetched = [(lo, hi, packed.cpu().numpy(),
+                        al.cpu().numpy() if return_alignments else None)
+                       for lo, hi, (packed, al) in pending]
+            if collect_timings:
+                t_fetch = time.perf_counter()
+
+            for lo, hi, packed, al in fetched:
+                if wire_format == "mulaw8":
+                    wav_rows = mulaw_decode(packed[:-4])
+                    ends = (packed[-4].astype(np.int32)
+                            | (packed[-3].astype(np.int32) << 8))
+                    denom_db = ((packed[-2].astype(np.int32)
+                                 | (packed[-1].astype(np.int32) << 8))
+                                - 32768).astype(np.float32) / 100.0
+                    scale = 10.0 ** (denom_db / 20.0)
+                else:
+                    wav_rows = packed[:-2]
+                    ends = packed[-2].astype(np.int32)
+                    scale = (10.0 ** (packed[-1].astype(np.float32) / 100.0
+                                      / 20.0)) / 32767.0
+                for i in range(hi - lo):
+                    all_ends.append(int(ends[i]))
+                    n_samples = min(wav_rows.shape[1], int(ends[i]) * hop)
+                    wavs.append(wav_rows[i, :n_samples].astype(np.float32)
+                                * np.float32(scale[i]))
+                    if al is not None:
+                        aligns.append(al[i, :seq_lens[lo + i], :])
+        else:
+            out = self._forward(on_device(inputs), on_device(input_lengths),
+                                on_device(spk), on_device(man), is_manual,
+                                steps)
+            alignments = out["alignments"].cpu().numpy()  # [N, bucket, T_dec]
+            linear = out["linear_outputs"].cpu().numpy()  # [N, T_dec*r, F]
+            specs = []
+            for i in range(N):
+                spec = linear[i]
+                align = alignments[i, :seq_lens[i], :]
+                if attention_trim:
+                    end = attention_trim_index(align, seq_lens[i], r)
+                    spec = spec[:max(end, r)]
+                specs.append(spec)
+                aligns.append(align)
+                all_ends.append(len(spec))
+            if vocode == "host":
+                wavs = [dsp_host.inv_spectrogram(spec.T, cfg.audio)
+                        for spec in specs]
+            else:
+                wavs = [np.zeros((0,), np.float32) for _ in specs]
+
+        if librosa_trim and vocode != "none":
             wavs = [trim_silence_db(w) for w in wavs]
         budget_hits = sum(e >= full_frames for e in all_ends)
         if adaptive and attention_trim and budget_hits \
@@ -411,8 +661,126 @@ class Synthesizer:
                 f"truncated; raise ModelConfig.steps_per_token or pass "
                 f"max_steps explicitly", stacklevel=2)
 
-        return {"wavs": wavs, "alignments": aligns, "linear": None,
-                "sequences": list(sequences), "ends": all_ends}
+        if collect_timings and vocode == "chip":
+            t_end = time.perf_counter()
+            timings = {
+                "frontend_ms": (t_frontend - t_start) * 1e3,
+                "dispatch_ms": (t_dispatch - t_frontend) * 1e3,
+                "device_ms": (t_device - t_dispatch) * 1e3,
+                "fetch_ms": (t_fetch - t_device) * 1e3,
+                "post_ms": (t_end - t_fetch) * 1e3,
+                "total_ms": (t_end - t_start) * 1e3,
+            }
+
+        result = {"wavs": wavs, "alignments": aligns, "linear": specs,
+                  "sequences": list(sequences), "ends": all_ends}
+        if timings is not None:
+            result["timings"] = timings
+        return result
+
+    def synthesize_robust(self, texts: Optional[Sequence[str]] = None,
+                          sequences: Optional[Sequence[Sequence[int]]] = None,
+                          speaker_ids: Optional[Sequence[int]] = None,
+                          retry_mode: int = 1,
+                          health_kwargs: Optional[Dict] = None,
+                          **kwargs) -> Dict[str, List]:
+        """:meth:`synthesize`, then :func:`attention_health` of each
+        utterance's first-pass alignment, then one more ``synthesize`` of
+        the failed utterances with the post-hoc transform
+        (:func:`posthoc_attention`, ``retry_mode`` 1 = argmax one-hot,
+        2 = sharpen) of their already fetched alignments as manual
+        alignments.
+
+        Adds ``attention_health`` (of the first pass) and ``retried`` (the
+        re-decoded indices) to the result; ``retry_mode=0`` diagnoses
+        without retrying.  ``soft_monotonic`` defaults to the model's
+        attention being ``bah_mon``.  Alignments are always fetched.
+        """
+        kwargs.pop("return_alignments", None)
+        if kwargs.get("manual_attention_mode"):
+            raise ValueError(
+                "manual_attention_mode conflicts with synthesize_robust's "
+                "own retry pass; use plain synthesize() for a global "
+                "manual-attention mode")
+        res = self.synthesize(texts=texts, sequences=sequences,
+                              speaker_ids=speaker_ids,
+                              return_alignments=True, **kwargs)
+        hk = dict(health_kwargs or {})
+        # soft-monotonic attention never exhibits sharpness; judging it by
+        # the sharpness gates would retry every healthy decode
+        hk.setdefault("soft_monotonic",
+                      self.config.model.attention_type == "bah_mon")
+        health = [attention_health(al, **hk) for al in res["alignments"]]
+        res["attention_health"] = health
+        bad = [i for i, h in enumerate(health) if not h["ok"]]
+        res["retried"] = bad if retry_mode else []
+        if bad and retry_mode:
+            bad_aligns = [res["alignments"][i] for i in bad]
+            t_in = max(al.shape[0] for al in bad_aligns)
+            t_dec = max(al.shape[1] for al in bad_aligns)
+            man = np.zeros((len(bad), t_in, t_dec), np.float32)
+            for j, al in enumerate(bad_aligns):
+                man[j, :al.shape[0], :al.shape[1]] = al
+            retry = self.synthesize(
+                sequences=[res["sequences"][i] for i in bad],
+                speaker_ids=(None if speaker_ids is None
+                             else [speaker_ids[i] for i in bad]),
+                manual_alignments=posthoc_attention(man, retry_mode),
+                return_alignments=True, **kwargs)
+            for j, i in enumerate(bad):
+                for key in ("wavs", "alignments", "ends"):
+                    res[key][i] = retry[key][j]
+                if res["linear"] is not None:
+                    res["linear"][i] = retry["linear"][j]
+        return res
+
+    # ------------------------------------------------- long-text stitching
+
+    def synthesize_long(self, text: str, speaker_id: int = 0,
+                        max_chunk_tokens: int = 120,
+                        gap_sentence_ms: float = 180.0,
+                        gap_clause_ms: float = 80.0,
+                        fade_ms: float = 10.0,
+                        robust: bool = True,
+                        **kwargs) -> Dict:
+        """A text of any length as one waveform: :func:`split_text` into
+        chunks of at most ``max_chunk_tokens`` tokens, every chunk decoded
+        in one batched call (through :meth:`synthesize_robust` when
+        ``robust``), linear fades of ``fade_ms`` at every piece edge, and
+        ``gap_sentence_ms`` of silence after sentence-final punctuation,
+        ``gap_clause_ms`` after a mid-sentence split.
+
+        Returns ``{"wav": float32 [T], "chunks": [str], "parts": <the
+        synthesize result>}``.
+        """
+        cfg = self.config
+        chunks = split_text(text, max_chunk_tokens, self.cleaner_names(),
+                            symbol_set=cfg.data.symbol_set)
+        if not chunks:
+            raise ValueError("no synthesizable text after splitting")
+        call = self.synthesize_robust if robust else self.synthesize
+        res = call(texts=chunks,
+                   speaker_ids=[speaker_id] * len(chunks), **kwargs)
+        sr = cfg.audio.sample_rate
+        # a trim can cut a chunk at a non-zero sample, which clicks against
+        # the inserted silence and at the document's ends
+        fade = int(sr * fade_ms / 1000.0)  # fade_ms=0 disables
+        pieces: List[np.ndarray] = []
+        for i, (chunk, wav) in enumerate(zip(chunks, res["wavs"])):
+            wav = np.asarray(wav, np.float32)
+            n = min(fade, len(wav))
+            if n > 0:
+                wav = wav.copy()
+                wav[:n] *= np.linspace(0.0, 1.0, n, dtype=np.float32)
+                wav[-n:] *= np.linspace(1.0, 0.0, n, dtype=np.float32)
+            pieces.append(wav)
+            if i == len(chunks) - 1:
+                continue
+            gap = (gap_sentence_ms if chunk.rstrip()[-1:] in _SENT_FINAL
+                   else gap_clause_ms)
+            pieces.append(np.zeros(int(sr * gap / 1000.0), np.float32))
+        return {"wav": np.concatenate(pieces), "chunks": chunks,
+                "parts": res}
 
     # ------------------------------------------------------------- save
 

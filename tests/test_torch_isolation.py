@@ -38,12 +38,12 @@ def test_import_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 47   # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 55   # every module was imported
 
 
 def test_sources_name_no_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 50
+    assert len(files) >= 60
     for path in files:
         text = path.read_text(encoding="utf-8")
         for pattern in FORBIDDEN:

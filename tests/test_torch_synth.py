@@ -120,13 +120,11 @@ def test_device_resolution():
     assert tsynth.Synthesizer(device="cpu").device.type == "cpu"
 
 
-def test_unported_options_raise(variables):
+def test_unknown_wire_format_raises(variables):
+    """(``vocode="host"``/``"none"`` and ``manual_attention_mode`` are held
+    against JAX in ``test_torch_synth_features.py``.)"""
     _, ts = _pair(variables)
-    for kw in (dict(vocode="host"), dict(vocode="none"),
-               dict(manual_attention_mode=1)):
-        with pytest.raises(NotImplementedError):
-            ts.synthesize(texts=TEXTS[:1], max_steps=2, **kw)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="wire_format"):
         ts.synthesize(texts=TEXTS[:1], max_steps=2, wire_format="bogus")
 
 
