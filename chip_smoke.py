@@ -128,35 +128,49 @@ def _events():
             torch.cuda.Event(enable_timing=True))
 
 
-def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
+def spin_ms(cycles: int) -> float:
+    """The device time of ``torch.cuda._sleep(cycles)``."""
+    start, end = _events()
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_ms(fn, runs: int = 25, warmup: int = 3, redos: int = 10) -> float:
     """Median device time of ``fn()`` over ``runs`` CUDA-event timings,
     after warm-up.  A device-side spin is queued ahead of each timed run, so
     the host has enqueued all of ``fn``'s launches before the start event
-    fires and the time excludes the host's launch cost; a run whose enqueue
-    outlasts the spin raises instead of reporting a host-bound time."""
+    fires and the time excludes the host's launch cost.  A run whose enqueue
+    outlasts the spin (a host stall on a shared machine) is thrown away and
+    made again behind a spin twice as long, up to 16 times the first; after
+    ``redos`` such runs it raises instead of reporting a host-bound time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = _events()
-    start.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    end.record()
-    end.synchronize()
-    spin_ms = start.elapsed_time(end)
+    cycles = SPIN_CYCLES
+    spin = spin_ms(cycles)
     times = []
-    for _ in range(runs):
+    while len(times) < runs:
         start, end = _events()
         t0 = time.perf_counter()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
         host_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
-        if host_ms >= spin_ms:
-            raise RuntimeError(f"enqueue took {host_ms:.3f} ms, longer than "
-                               f"the {spin_ms:.3f} ms spin ahead of it")
-        times.append(start.elapsed_time(end))
+        if host_ms < spin:
+            times.append(start.elapsed_time(end))
+            continue
+        redos -= 1
+        require(redos >= 0, f"enqueue took {host_ms:.3f} ms, longer than "
+                            f"the {spin:.3f} ms spin ahead of it")
+        log(f"[time] enqueue took {host_ms:.3f} ms behind a {spin:.3f} ms "
+            f"spin: the run is made again behind a longer spin")
+        cycles = min(2 * cycles, 16 * SPIN_CYCLES)
+        spin = spin_ms(cycles)
     return statistics.median(times)
 
 
