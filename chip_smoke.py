@@ -73,7 +73,26 @@
    and ``train`` resumes it for one step.  A ``[serve]`` line gives the
    walls of one request, of the burst, of ``synthesize_long``, of the
    robust call and of host against chip vocoding.
-8. Prints the kernels line, the card line, and last the result line
+8. Graphs (``Synthesizer.prewarm``, the app's ``--prewarm``, the train
+   driver's ``prewarm``).  A replay launches its kernels without the
+   wrappers, so their counters stay at 0 through it (checked) and its
+   K1/K2/K3 launches are counted in a ``torch.profiler`` trace of it, held
+   against the eager call's counters.  (a) Phase 4's three calls eagerly,
+   then each call's key captured (the count ``prewarm_step_rungs`` gives)
+   and replayed: the same ends, alignments and waveforms (limit 1e-6 of
+   the peak), the same launches, and both walls and idle shares; (b) 32
+   sentences at chunks of 16 (one program replayed twice in one call) and
+   replays out of capture order, equal to eager; (c) the app's 21
+   programs, then phase 7 (e)'s requests under a trace (K1 on the short
+   ones, K2 on the long POST), replayed; (d) ``train(..., prewarm=True)``
+   for 20 steps and a resume to 30 on phase 6's corpus and seed: every
+   step of a bucket shape replays its graph once, per-step losses and
+   final parameters of the nearer eager run (phase 6's or one more)
+   within twice the spread of the two or 1e-5, a falling loss, and eager
+   against replayed steps on the same 4 batches (step time, target
+   frames/s, peak memory) with the idle share of steps 11-15.  A
+   ``[graphs]`` line sums it up.
+9. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -574,7 +593,7 @@ def main_path(dev):
             f"call (c) launched K3 {lc['K3']} times, not 30 x {chunks}")
     require(lc["K2"] > 0, "call (c) launched no overlap-add kernel")
     require(lc["K1"] == 0, "call (c) should not reach the fused engine")
-    results.update(launches=launches, synth=synth)
+    results.update(launches=launches, synth=synth, calls=calls)
 
     # the same weights on the CPU: a 10-step greedy decode agrees
     cpu = Synthesizer(device="cpu").init_random(cfg, seed=0)
@@ -1043,11 +1062,13 @@ def http(port: int, method: str, path: str, body=None, ctype=None):
     return out
 
 
-def check_server(synth, tmp: str, sr: int, long_text: str) -> dict:
+def check_server(synth, tmp: str, sr: int, long_text: str,
+                 zero=zero_counts, read=read_counts) -> dict:
     """(e) ``make_handler`` and ``SynthWorker`` on the card synthesizer, on
     an ephemeral port with the worker on a thread: one GET, four
     concurrent GETs (coalesced), a long POST (the chunked route) and a
-    cached repeat."""
+    cached repeat.  ``zero``/``read`` count the kernels (the wrappers'
+    counters, or a trace)."""
     import json as _json
     import os
     import threading
@@ -1079,7 +1100,7 @@ def check_server(synth, tmp: str, sr: int, long_text: str) -> dict:
     out = {}
     try:
         with CallLog(synth, "synthesize") as calls:
-            zero_counts()
+            zero()
             (status, ctype, body), out["single_s"] = timed(
                 lambda: get(SHORT[0]))
             require(status == 200 and ctype == "audio/wav",
@@ -1109,19 +1130,19 @@ def check_server(synth, tmp: str, sr: int, long_text: str) -> dict:
             out["batched_calls"] = worker.batched_calls - before
             require(out["batched_calls"] > 0,
                     "(e) four concurrent GETs were not coalesced")
-            out["launches_short"] = read_counts()
+            out["launches_short"] = read()
             require(out["launches_short"]["K1"] > 0,
                     "(e) the short requests launched no fused Griffin-Lim "
                     "kernel")
 
-            zero_counts()
+            zero()
             (status, ctype, body), out["post_s"] = timed(lambda: http(
                 port, "POST", "/generate",
                 _json.dumps({"text": long_text, "speaker_id": 1}),
                 "application/json"))
             require(status == 200, f"(e) POST: {status} {body[:200]!r}")
             rates.append(wav_rate(body))
-            out["launches_post"] = read_counts()
+            out["launches_post"] = read()
             require(out["launches_post"]["K2"] > 0,
                     "(e) the long POST launched no overlap-add kernel")
 
@@ -1323,6 +1344,352 @@ def serve_phase(dev, synth, trained: dict, tmp: str) -> dict:
     return serve
 
 
+# ------------------------------------------------------------------ graphs
+
+def median_wall(fn, n: int = 3):
+    """(last result, median wall seconds) of ``n`` synchronized calls."""
+    walls = []
+    for _ in range(n):
+        out, wall = timed(fn)
+        walls.append(wall)
+    return out, statistics.median(walls)
+
+
+#: the port's kernels in a trace (``synth/profile.py::kernel_group``), by
+#: the wrapper whose count they match: a K1 count is one of its four
+#: kernels, a K2 count its one kernel, a K3 count one C call of three
+#: kernels (cast, forward and inverse product), counted by its forward one
+TRACE_GROUPS = {"K1": ("gl_frame_uv", "gl_dft_project", "gl_idft_window",
+                       "gl_ola_norm"),
+                "K2": ("ola_centered",), "K3": ("gl_spectral_dft",)}
+
+
+def trace_counts(summary: dict) -> dict:
+    """K1/K2/K3 launches in a trace summary (``TraceWindow.stop``): what a
+    graph's replay launched, which the wrappers' counters do not see."""
+    by = summary["device_launches_by_group"]
+    k3 = [by.get(g, 0) for g in ("gl_spectral_cast", "gl_spectral_dft",
+                                 "gl_spectral_idft")]
+    require(len(set(k3)) == 1, f"K3's three kernels ran {k3} times")
+    return {k: sum(by.get(g, 0) for g in groups)
+            for k, groups in TRACE_GROUPS.items()}
+
+
+def traced(fn):
+    """(result, trace summary) of one synchronized call of ``fn``."""
+    from tacotron_tpu_torch.synth.profile import TraceWindow
+    window = TraceWindow(torch.device("cuda")).start()
+    out = fn()
+    return out, window.stop()
+
+
+class TraceCounts:
+    """``zero``/``read`` for :func:`check_server` that count the port's
+    kernels in a trace from one to the other (:func:`trace_counts`)."""
+
+    def zero(self) -> None:
+        from tacotron_tpu_torch.synth.profile import TraceWindow
+        self.window = TraceWindow(torch.device("cuda")).start()
+
+    def read(self) -> dict:
+        return trace_counts(self.window.stop())
+
+
+def replays(synth) -> int:
+    return sum(g.replays for g in synth._graphs.values())
+
+
+def compare_results(got, want, what: str) -> float:
+    """Replayed against eager: the same ends, alignments and waveforms.
+    Returns the largest waveform difference over the peak."""
+    require(got["ends"] == want["ends"],
+            f"{what}: ends {got['ends']} != eager {want['ends']}")
+    err = 0.0
+    for a, b in zip(got["wavs"], want["wavs"]):
+        require(a.shape == b.shape, f"{what}: {a.shape} != {b.shape}")
+        err = max(err, float(np.abs(a - b).max()) / float(np.abs(b).max()))
+    al = max(float(np.abs(a - b).max())
+             for a, b in zip(got["alignments"], want["alignments"]))
+    # the same kernels on the same inputs: bit-equal is expected; the limit
+    # is 1e-6 of the peak
+    require(err <= 1e-6 and al <= 1e-6,
+            f"{what}: waveforms differ by {err} of the peak, alignments by "
+            f"{al}")
+    return err
+
+
+def replay_once(s, call, what: str, want: dict) -> None:
+    """One call that must replay one graph per chunk and launch nothing
+    through the kernel wrappers, equal to the eager result ``want``."""
+    chunks = len(s._chunks(len(want["ends"])))
+    before = replays(s)
+    zero_counts()
+    got = call()
+    torch.cuda.synchronize()
+    require(replays(s) == before + chunks,
+            f"{what}: {replays(s) - before} replays, not {chunks}")
+    require(not any(read_counts().values()),
+            f"{what}: the wrappers launched {read_counts()} during replays")
+    compare_results(got, want, what)
+
+
+def serving_graphs(main: dict, tmp: str) -> dict:
+    """Phase 8 (a)-(c): the main path's three calls replayed against eager,
+    two chunks of one program and replays out of capture order, then the
+    server after the app's ``--prewarm``.  A replay's kernel launches are
+    counted in a trace of it and held against the eager call's counts."""
+    import os
+
+    from tacotron_tpu_torch.app import prewarm_server
+    from tacotron_tpu_torch.synth.synthesizer import prewarm_step_rungs
+
+    out, eager = {}, {}
+    synth = main["synth"]
+
+    def key_args(s, kw):
+        return s.prewarm_args(kw["texts"], max_steps=kw["max_steps"],
+                              fast_vocoder=kw.get("fast_vocoder", False))
+
+    # (a) each call eagerly, then its key captured and replayed
+    for name, (s, kw) in main["calls"].items():
+        kw = dict(kw, librosa_trim=False)
+        call = (lambda s=s, kw=kw: s.synthesize(**kw))
+        zero_counts()
+        want = call()
+        torch.cuda.synchronize()
+        counts_e = read_counts()
+        _, wall_e = median_wall(call)
+        _, trace_e = traced(call)
+        require(trace_counts(trace_e) == counts_e,
+                f"(a) call ({name}): the eager trace counts "
+                f"{trace_counts(trace_e)}, the wrappers {counts_e}")
+        eager[name] = want
+        args = key_args(s, kw)
+        t0 = time.perf_counter()
+        n = s.prewarm(**args)
+        capture_s = time.perf_counter() - t0
+        rungs = prewarm_step_rungs(s.config, args["token_buckets"],
+                                   args["max_steps"])
+        require(n == sum(map(len, rungs.values())) * len(args["batch_sizes"]),
+                f"(a) call ({name}): prewarm returned {n}")
+        replay_once(s, call, f"(a) call ({name})", want)
+        _, wall_g = median_wall(call)
+        _, trace_g = traced(call)
+        counts_g = trace_counts(trace_g)
+        require(counts_g == counts_e, f"(a) call ({name}): launches in the "
+                f"replay's trace {counts_g} != eager {counts_e}")
+        idle_e, idle_g = (t["device_idle_share"] for t in (trace_e, trace_g))
+        out[name] = dict(eager_s=wall_e, replay_s=wall_g, eager_idle=idle_e,
+                         replay_idle=idle_g, capture_s=capture_s,
+                         launches=counts_g)
+        log(f"[graphs] (a) call ({name}): eager {wall_e:.4f} s (idle "
+            f"{idle_e:.4f}), replay {wall_g:.4f} s (idle {idle_g:.4f}), "
+            f"capture {capture_s:.2f} s, launches {counts_e} eager (wrappers"
+            f" and trace), {counts_g} in the replay's trace, waveforms "
+            f"bit-equal within 1e-6 of the peak")
+
+    # (b) 32 sentences at chunks of 16: one program twice in one call
+    s, kw = main["calls"]["a"]
+    kw32 = dict(kw, texts=KOREAN * 8, speaker_ids=[i % 2 for i in range(32)],
+                librosa_trim=False)
+    call32 = (lambda: s.synthesize(**kw32))
+    zero_counts()
+    want32 = call32()
+    torch.cuda.synchronize()
+    counts_e = read_counts()
+    args = key_args(s, kw32)
+    require(args["batch_sizes"] == (16,), f"(b) chunk sizes {args}")
+    s.prewarm(**args)
+    replay_once(s, call32, "(b) two chunks of one program", want32)
+    _, trace = traced(call32)
+    require(trace_counts(trace) == counts_e and counts_e["K1"] > 0,
+            f"(b) launches in the replays' trace {trace_counts(trace)} vs "
+            f"eager {counts_e}")
+    # out of capture order: the batch-16 program, then (b)'s, then (a)'s
+    replay_once(s, call32, "(b) reordered, 32 sentences", want32)
+    for name in ("b", "a"):
+        s_, kw_ = main["calls"][name]
+        replay_once(s_, lambda: s_.synthesize(**dict(kw_, librosa_trim=False)),
+                    f"(b) reordered, call ({name})", eager[name])
+    log(f"[graphs] (b) 32 sentences in two chunks of one program: equal to "
+        f"eager (launches {counts_e}, the same in the replays' trace); "
+        f"replays out of capture order equal to eager")
+
+    # (c) the server after the app's --prewarm; kernels counted in a trace
+    t0 = time.perf_counter()
+    n = prewarm_server(synth)
+    out["server_prewarm_s"] = time.perf_counter() - t0
+    rungs = prewarm_step_rungs(synth.config, (32, 64, 96, 128))
+    require(n == 3 * sum(map(len, rungs.values())) == 21,
+            f"(c) the app's prewarm returned {n}")
+    before = replays(synth)
+    from tacotron_tpu_torch.text.eval_sentences import EVAL_TEXTS
+    counter = TraceCounts()
+    server = check_server(synth, os.path.join(tmp, "graphs"),
+                          synth.config.audio.sample_rate,
+                          ". ".join(EVAL_TEXTS[5:]) + ".",
+                          zero=counter.zero, read=counter.read)
+    out["server_replays"] = replays(synth) - before
+    require(out["server_replays"] >= 4,
+            f"(c) the server replayed {out['server_replays']} times")
+    out["server"] = {k: server[k] for k in (
+        "single_s", "burst_s", "burst_request_s", "post_s",
+        "launches_short", "launches_post", "batched_calls")}
+    log(f"[graphs] (c) server after --prewarm ({n} programs in "
+        f"{out['server_prewarm_s']:.1f} s), traced: one GET "
+        f"{server['single_s']:.4f} s, burst of 4 {server['burst_s']:.4f} s "
+        f"(requests {[round(x, 4) for x in server['burst_request_s']]}), "
+        f"long POST {server['post_s']:.4f} s, {out['server_replays']} "
+        f"replays, launches in the trace: short {server['launches_short']}"
+        f" post {server['launches_post']}")
+    return out
+
+
+def run_losses_and_params(run: str):
+    """Per-step train losses and the last checkpoint's parameters."""
+    import os
+
+    from tacotron_tpu_torch.train.checkpoint import checkpoint_path
+    from tacotron_tpu_torch.utils import read_metrics
+
+    losses = [r["loss"] for r in read_metrics(
+        os.path.join(run, "metrics.jsonl"), "train")]
+    return losses, dict(np.load(checkpoint_path(run)))
+
+
+def run_spread(a, b) -> tuple:
+    """(largest per-step loss difference over the loss, largest parameter
+    difference over the largest parameter) between two runs."""
+    (la, pa), (lb, pb) = a, b
+    require(len(la) == len(lb) == 30, f"{len(la)} and {len(lb)} steps")
+    loss = max(abs(x - y) / abs(x) for x, y in zip(la, lb))
+    peak = max(float(np.abs(v).max()) for v in pa.values())
+    param = max(float(np.abs(pa[k] - pb[k]).max()) for k in pa) / peak
+    return loss, param
+
+
+def train_graphs(dev, trained: dict, tmp: str) -> dict:
+    """Phase 8 (d): ``train(..., prewarm=True)`` for 20 steps and a resume
+    to 30 on phase 6's corpus, config and seed, against phase 6's eager run
+    and one more eager run; then eager and replayed steps timed on the same
+    batches."""
+    import os
+
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.train.checkpoint import CheckpointManager
+    from tacotron_tpu_torch.train.driver import train
+    from tacotron_tpu_torch.train.profile import time_train_steps
+    from tacotron_tpu_torch.train.state import create_train_state
+    from tacotron_tpu_torch.train.step import (TrainStep, batch_to_device,
+                                               make_train_step)
+
+    cfg, dirs = trained["config"], trained["corpus"]
+    eager_run = os.path.join(tmp, "run_eager2")
+    graph_run = os.path.join(tmp, "run_graphs")
+    profile = os.path.join(tmp, "profile_graphs")
+    t0 = time.perf_counter()
+    train(eager_run, dirs, cfg, num_steps=20, device=dev)
+    train(eager_run, dirs, cfg, num_steps=30, device=dev)
+    eager_s = time.perf_counter() - t0
+    shapes = DataFeeder(dirs, cfg, data_type="train",
+                        seed=123).bucket_shapes()
+    # every step of the graph run: its padded (tokens, frames) and whether
+    # it replayed a graph
+    hop = cfg.audio.hop_length
+    steps_seen = []
+    step_call = TrainStep.__call__
+
+    def counted(self, state, batch, seed):
+        before = sum(g.replays for g in self._graphs.values())
+        out = step_call(self, state, batch, seed)
+        frames = (batch.mel_targets.shape[1] if batch.mel_targets is not None
+                  else batch.waveforms.shape[1] // hop + 1)
+        steps_seen.append(((batch.inputs.shape[1], frames), sum(
+            g.replays for g in self._graphs.values()) - before))
+        return out
+
+    TrainStep.__call__ = counted
+    t0 = time.perf_counter()
+    try:
+        train(graph_run, dirs, cfg, num_steps=20, device=dev,
+              profile_dir=profile, prewarm=True)
+        state = train(graph_run, dirs, cfg, num_steps=30, device=dev,
+                      prewarm=True)
+    finally:
+        TrainStep.__call__ = step_call
+    graph_s = time.perf_counter() - t0
+    require(state.step == 30, f"(d) graph run ended at {state.step}")
+    ladder = {tuple(map(int, sh)) for sh in shapes}
+    replayed = sum(n for _, n in steps_seen)
+    require(len(steps_seen) == 30 and all(
+        n == (sh in ladder) for sh, n in steps_seen) and replayed > 0,
+        f"(d) steps (shape, replays) {steps_seen}: a step of a bucket shape "
+        f"{sorted(ladder)} must replay once, any other none")
+    with open(os.path.join(graph_run, "train.log")) as fh:
+        text = fh.read()
+    require(text.count(f"prewarming {len(shapes)} bucket program(s)") == 2
+            and text.count("prewarm done") == 2,
+            f"(d) the graph run's log lacks the prewarm lines for "
+            f"{len(shapes)} shapes")
+    first_run = run_losses_and_params(trained["run_dir"])
+    eager2 = run_losses_and_params(eager_run)
+    graphs = run_losses_and_params(graph_run)
+    spread = run_spread(first_run, eager2)
+    # against the nearer eager run: the eager runs themselves may differ
+    # (atomics in the backward), and each step amplifies a difference
+    to_eager = [run_spread(e, graphs) for e in (first_run, eager2)]
+    err = tuple(min(d[i] for d in to_eager) for i in range(2))
+    limits = [max(2 * x, 1e-5) for x in spread]
+    require(err[0] <= limits[0] and err[1] <= limits[1],
+            f"(d) graph run against eager: loss {to_eager[0][0]} / "
+            f"{to_eager[1][0]}, parameters {to_eager[0][1]} / "
+            f"{to_eager[1][1]}; eager against eager {spread}")
+    losses = graphs[0]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[25:]))
+    require(last < first, f"(d) loss did not fall: {first} -> {last}")
+    with open(os.path.join(profile, "summary.json")) as fh:
+        prof = json.load(fh)
+
+    # eager and replayed steps on the same 4 batches (after one warm-up
+    # step each), from the graph run's last checkpoint
+    state = CheckpointManager(graph_run, cfg).restore(
+        create_train_state(cfg, seed=0, device=dev))
+    batches = DataFeeder(dirs, cfg, seed=5).batches()
+    host = [next(batches) for _ in range(5)]
+    eager_t = time_train_steps(state, make_train_step(cfg), iter(host), 1, 4)
+    step_fn = make_train_step(cfg)
+    t0 = time.perf_counter()
+    n = step_fn.prewarm(state, [batch_to_device(h, dev) for h in host])
+    capture_s = time.perf_counter() - t0
+    replay_t = time_train_steps(state, step_fn, iter(host), 1, 4)
+    out = dict(eager_runs_s=eager_s, graph_runs_s=graph_s,
+               replayed_steps=replayed,
+               eager_spread=spread, graph_err=err, loss_first5=first,
+               loss_last5=last, bucket_shapes=len(shapes),
+               replay_idle=prof["device_idle_share"],
+               eager_idle=trained["profile"]["device_idle_share"],
+               eager=eager_t, replay=replay_t, timing_graphs=n,
+               timing_capture_s=capture_s)
+    log(f"[graphs] (d) train(prewarm=True) 20 + resume to 30 on "
+        f"{len(shapes)} bucket shapes ({replayed} of 30 steps replayed, "
+        f"each step of a bucket shape): {graph_s:.1f} s against "
+        f"{eager_s:.1f} s eager; loss {first:.4f} -> {last:.4f}; against "
+        f"eager: loss {err[0]:.3e}, parameters {err[1]:.3e} (eager against "
+        f"eager {spread[0]:.3e}, {spread[1]:.3e}); steps 11-15 idle "
+        f"{prof['device_idle_share']:.4f} (eager "
+        f"{out['eager_idle']:.4f}); the same 4 batches: eager "
+        f"{eager_t['sec_per_step']:.4f} s a step, "
+        f"{eager_t['target_frames_per_s']:.1f} frames/s, peak "
+        f"{eager_t['peak_memory_gib']:.2f} GiB allocated "
+        f"({eager_t['peak_reserved_gib']:.2f} reserved); replayed "
+        f"{replay_t['sec_per_step']:.4f} s, "
+        f"{replay_t['target_frames_per_s']:.1f} frames/s, peak "
+        f"{replay_t['peak_memory_gib']:.2f} GiB allocated "
+        f"({replay_t['peak_reserved_gib']:.2f} reserved), {n} graphs "
+        f"captured in {capture_s:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1376,6 +1743,10 @@ def main() -> int:
             f"of steps 11-15 {trained['profile']['device_idle_share']:.4f} "
             f"on {card}")
         serve = serve_phase(dev, main["synth"], trained, tmp)
+        t8 = time.perf_counter()
+        graphs = serving_graphs(main, tmp)
+        graphs["train"] = train_graphs(dev, trained, tmp)
+        graphs["wall_s"] = time.perf_counter() - t8
     for k, name in zip(kernels, ("K1", "K2", "K3")):
         k["launches_serving"] = {step: v[name]
                                  for step, v in serve["launches"].items()}
@@ -1387,6 +1758,29 @@ def main() -> int:
         f" s (manual mode {serve['manual_s']:.4f} s); vocode host "
         f"{serve['host_s']:.4f} s vs chip {serve['chip_s']:.4f} s on the same "
         f"2 texts; phase 7 wall time {serve['wall_s']:.1f} s on {card}")
+    g, gt = graphs, graphs["train"]
+    log("[graphs] eager -> replay: " + "; ".join(
+        f"call ({c}) {g[c]['eager_s']:.4f} -> {g[c]['replay_s']:.4f} s, idle "
+        f"{g[c]['eager_idle']:.4f} -> {g[c]['replay_idle']:.4f}"
+        for c in ("a", "b", "c"))
+        + f"; server one GET {serve['single_s']:.4f} -> "
+        f"{g['server']['single_s']:.4f} s, burst of 4 {serve['burst_s']:.4f}"
+        f" -> {g['server']['burst_s']:.4f} s ({g['server_replays']} replays,"
+        f" 21 programs prewarmed in {g['server_prewarm_s']:.1f} s); train "
+        f"step {gt['eager']['sec_per_step']:.4f} -> "
+        f"{gt['replay']['sec_per_step']:.4f} s, "
+        f"{gt['eager']['target_frames_per_s']:.1f} -> "
+        f"{gt['replay']['target_frames_per_s']:.1f} target frames/s, peak "
+        f"{gt['eager']['peak_memory_gib']:.2f} -> "
+        f"{gt['replay']['peak_memory_gib']:.2f} GiB allocated, "
+        f"{gt['eager']['peak_reserved_gib']:.2f} -> "
+        f"{gt['replay']['peak_reserved_gib']:.2f} GiB reserved, idle "
+        f"{gt['eager_idle']:.4f} -> {gt['replay_idle']:.4f}; phase 8 wall "
+        f"time {g['wall_s']:.1f} s on {card}")
+    for k, name in zip(kernels, ("K1", "K2", "K3")):
+        # counted in a trace of each call's replay
+        k["launches_graphs"] = {c: g[c]["launches"][name]
+                                for c in ("a", "b", "c")}
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")

@@ -11,9 +11,9 @@
 
 Responses are cached by md5(text) per model and speaker; CORS headers are
 always sent.  Runs on the card; ``--device cpu`` runs on the CPU instead.
-``--prewarm`` is refused: in the JAX package it compiles the XLA serving
-programs, and its counterpart here, CUDA-graph capture of the serving
-step, is not ported yet.
+``--prewarm`` captures the serving programs as CUDA graphs
+(``Synthesizer.prewarm``, the root app's buckets and chunk sizes) before
+the server takes requests.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import json
 import os
 import queue
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -340,6 +341,17 @@ def make_handler(worker: SynthWorker, cache_dir: str, model_name: str):
     return Handler
 
 
+def prewarm_server(synth: Synthesizer, fast_vocoder: bool = True,
+                   wire_format: str = "int16") -> int:
+    """The server's ``--prewarm``: token buckets 32-128 and chunk sizes 1,
+    2 and 4, which cover the coalesced short requests and the long-text
+    route's chunks (larger fan-outs run eagerly).  Returns the number of
+    programs."""
+    return synth.prewarm(token_buckets=(32, 64, 96, 128),
+                         batch_sizes=(1, 2, 4), fast_vocoder=fast_vocoder,
+                         wire_format=wire_format)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="HTTP synthesis server")
     parser.add_argument("--load_path", default=None,
@@ -356,8 +368,10 @@ def main(argv=None) -> None:
                              "health check with post-hoc manual attention "
                              "of this mode (0=off)")
     parser.add_argument("--prewarm", action="store_true",
-                        help="refused: CUDA-graph capture of the serving "
-                             "step is not ported yet")
+                        help="capture the serving programs (token buckets "
+                             "32-128 x chunk sizes 1/2/4, covering the "
+                             "long-text route) as CUDA graphs before "
+                             "accepting requests; other shapes run eagerly")
     parser.add_argument("--max_batch", type=int, default=4,
                         help="coalesce up to this many concurrent simple "
                              "requests into one batched decode (1 = off)")
@@ -370,11 +384,6 @@ def main(argv=None) -> None:
                         help="torch device (default: cuda; raises without "
                              "a card)")
     args = parser.parse_args(argv)
-    if args.prewarm:
-        parser.error("--prewarm compiles the JAX package's XLA serving "
-                     "programs; its counterpart, CUDA-graph capture of the "
-                     "serving step (ROADMAP Queue 1, the prewarm item), is "
-                     "not ported yet")
     if not args.random_init and args.load_path is None:
         parser.error("--load_path required (or pass --random_init)")
 
@@ -385,6 +394,15 @@ def main(argv=None) -> None:
     else:
         synth.load(args.load_path)
         model_name = os.path.basename(os.path.normpath(args.load_path))
+
+    if args.prewarm:
+        # before the worker and the HTTP thread exist: a capture refuses the
+        # work of other threads in PyTorch's default capture mode
+        t0 = time.perf_counter()
+        n = prewarm_server(synth, fast_vocoder=not args.classic_vocoder,
+                           wire_format=args.wire_format)
+        print(f"[*] prewarmed {n} serving programs in "
+              f"{time.perf_counter() - t0:.1f} s")
 
     worker = SynthWorker(synth, fast_vocoder=not args.classic_vocoder,
                          attention_retry=args.attention_retry,

@@ -151,15 +151,17 @@ def _inv_norm(n_frames, config, nba, device) -> torch.Tensor:
 def prepare_magnitudes(magnitude: torch.Tensor, n_fft: int):
     """[B, T, n_freq] target magnitudes -> weight-folded split-bin
     (mag_e_s [B, T, NE], mag_o_s [B, T, NO]) for :func:`gl_iteration`."""
-    e_r, e_i, o_r, o_i, we, wo = fwd_matrices(n_fft)
+    e_r, _, o_r, _, _, _ = fwd_matrices(n_fft)
     nep, nop = e_r.shape[1], o_r.shape[1]
     mag_e = magnitude[:, :, 0::2]
     mag_o = magnitude[:, :, 1::2]
-    dev = magnitude.device
-    mag_e_s = F.pad(mag_e, (0, nep - mag_e.shape[-1])) \
-        * torch.as_tensor(we, device=dev)
-    mag_o_s = F.pad(mag_o, (0, nop - mag_o.shape[-1])) \
-        * torch.as_tensor(wo, device=dev)
+    # the weights as device constants: an upload per call would be a
+    # host-to-device copy inside a CUDA-graph capture
+    we, wo = (device_constant(("gl_weights", n_fft, i),
+                              lambda i=i: fwd_matrices(n_fft)[i],
+                              magnitude.device) for i in (4, 5))
+    mag_e_s = F.pad(mag_e, (0, nep - mag_e.shape[-1])) * we
+    mag_o_s = F.pad(mag_o, (0, nop - mag_o.shape[-1])) * wo
     return mag_e_s.contiguous(), mag_o_s.contiguous()
 
 

@@ -14,7 +14,11 @@ overlap-add kernel), measures:
   and of its two phases run alone: the greedy decode and the vocoder;
 - a ``torch.profiler`` trace of one ``synthesize``: device time by kernel,
   grouped (the port's kernels, matrix products, other), and the device's
-  busy and idle share of the call's wall time.
+  busy and idle share of the call's wall time;
+- then, after ``Synthesizer.prewarm`` of the rung's key, the same call
+  replayed as a CUDA graph: its wall time (``replay_wall_s``) and one trace
+  of it (``replay``: device busy time and idle share), beside the eager
+  call's in the same run.
 
 Prints one JSON object per rung and writes them all to ``--out``.
 Needs a CUDA card.
@@ -203,6 +207,20 @@ def profile_rung(synth, rung, repeats: int) -> dict:
     window = TraceWindow(dev).start()
     synth.synthesize(**kw)
     traced = window.stop()
+
+    # the rung's programs as CUDA graphs
+    synth.prewarm(**synth.prewarm_args(texts, max_steps=rung["max_steps"],
+                                       fast_vocoder=rung["fast_vocoder"]))
+    replayed = synth.synthesize(**kw)
+    if replayed["ends"] != res["ends"] or any(
+            not np.array_equal(a, b)
+            for a, b in zip(replayed["wavs"], res["wavs"])):
+        raise RuntimeError(f"{rung['name']}: the replay differs from the "
+                           f"eager call")
+    replay_wall = _wall(lambda: synth.synthesize(**kw), repeats)
+    window = TraceWindow(dev).start()
+    synth.synthesize(**kw)
+    replay = window.stop()
     return {
         "rung": rung["name"], "batch": rung["n"],
         "max_steps": rung["max_steps"],
@@ -212,6 +230,9 @@ def profile_rung(synth, rung, repeats: int) -> dict:
         "audio_s_per_s": audio_s / wall,
         "decode_s": decode_s, "vocode_s": vocode_s,
         "traced_wall_s": traced.pop("wall_s"), **traced,
+        "replay_wall_s": replay_wall,
+        "replay_audio_s_per_s": audio_s / replay_wall,
+        "replay": replay,
     }
 
 

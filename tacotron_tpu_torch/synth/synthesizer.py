@@ -14,20 +14,26 @@ post-hoc manual alignments (:func:`posthoc_attention`),
 :meth:`Synthesizer.synthesize_robust` retries the utterances that fail
 :func:`attention_health`, and :meth:`Synthesizer.synthesize_long` splits a
 text of any length (:func:`split_text`), decodes the chunks in one batched
-call and stitches them with silence.  ``prewarm`` and sharded synthesis are
-not ported yet.
+call and stitches them with silence.  :meth:`Synthesizer.prewarm` captures
+the device program as one CUDA graph per (token bucket, decode-step rung,
+chunk size), the counterpart of the JAX package's compiled programs;
+``synthesize`` replays a captured key.  Sharded synthesis is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import math
 import os
 import re
+import threading
 import time
 import warnings
 import wave
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ from ..models.tacotron import Tacotron
 from ..params import from_flax, init_random_, load_npz
 from ..text import text_to_sequence
 from ..text.symbols import EOS_ID, vocab_size_for
+from ..utils.graphs import GraphSet, Graphed
 
 # Decode-step bucket ladder for length-adaptive serving (multiples of 50 up
 # to the reference's 200-step decode cap).
@@ -60,6 +67,27 @@ def adaptive_max_steps(num_tokens: int, min_iters: int, max_iters: int,
         if need <= rung <= max_iters:
             return rung
     return max_iters
+
+
+def prewarm_step_rungs(cfg, token_buckets: Sequence[int],
+                       max_steps: Optional[int] = None) -> dict:
+    """Decode-step rungs :meth:`Synthesizer.prewarm` must capture per token
+    bucket: exactly the set :func:`adaptive_max_steps` can choose at serving
+    time (same ``cfg.model.steps_per_token``).  Batches land in bucket ``b``
+    only when their longest text exceeds the previous bucket, so rungs
+    reachable only from shorter texts are excluded."""
+    buckets = sorted(token_buckets)
+    rungs = {}
+    for i, bucket in enumerate(buckets):
+        if max_steps is not None:
+            rungs[bucket] = [max_steps]
+            continue
+        lo = buckets[i - 1] + 1 if i > 0 else 1
+        rungs[bucket] = sorted({
+            adaptive_max_steps(t, cfg.data.min_iters, cfg.model.max_iters,
+                               steps_per_token=cfg.model.steps_per_token)
+            for t in range(lo, bucket + 1)})
+    return rungs
 
 
 def _round_up(x: int, m: int) -> int:
@@ -353,6 +381,11 @@ class Synthesizer:
         torch.backends.cudnn.allow_tf32 = False
         self.config: Optional[Config] = None
         self.model: Optional[Tacotron] = None
+        # (bucket, steps, manual, trim, fast, wire, chunk size) -> graph
+        self._graphs: Dict[tuple, Graphed] = {}
+        self._graph_set = GraphSet(self.device)
+        # a graph's static buffers serve one call at a time
+        self._graph_lock = threading.Lock()
 
     # ------------------------------------------------------------------ load
 
@@ -363,6 +396,7 @@ class Synthesizer:
 
     def _install(self, model: Tacotron) -> "Synthesizer":
         self.model = model.to(self.device).eval()
+        self._graphs.clear()  # captured on the previous model's weights
         return self
 
     def init_random(self, config: Config, seed: int = 0) -> "Synthesizer":
@@ -453,6 +487,103 @@ class Synthesizer:
         extra[1, :n] = denom_q[:n].to(torch.int16)
         return torch.cat([wav_i16, extra], dim=0), aligns
 
+    # -------------------------------------------------------------- prewarm
+
+    def prewarm(self, token_buckets: Sequence[int] = (32, 64),
+                batch_sizes: Sequence[int] = (1,),
+                max_steps: Optional[int] = None,
+                attention_trim: bool = True,
+                fast_vocoder: bool = True,
+                wire_format: str = "int16") -> int:
+        """Capture the serving programs ahead of the first request: one CUDA
+        graph of :meth:`_vocode_chunk` per (token bucket, decode-step rung,
+        chunk size), on the zero inputs the JAX package compiles its
+        programs on.  ``synthesize`` then replays a chunk whose key was
+        captured, with its inputs copied into the graph's buffers, and runs
+        any other chunk eagerly.  A server calls this before it takes
+        requests, so a request pays the replay, not the host's launches of
+        ~100 kernels a decoder step.  It captures while no other thread
+        uses the card (a capture refuses their work), so a server calls it
+        before its worker and HTTP threads start.
+
+        With ``max_steps=None`` each token bucket gets every decode-step
+        rung :func:`adaptive_max_steps` can choose for the texts that route
+        to it (:func:`prewarm_step_rungs`).  ``batch_sizes`` are chunk
+        sizes, powers of two as ``synthesize`` pads its chunks.  On the CPU
+        the same keys are warmed up and called on their static buffers.
+        :meth:`prewarm_args` gives the arguments that capture the programs
+        of one ``synthesize`` call.
+
+        Returns the number of programs (captured now or before)."""
+        if self.model is None:
+            raise RuntimeError("call init_random() or load_variables() first")
+        if wire_format not in ("int16", "mulaw8"):
+            raise ValueError(f"unknown wire_format {wire_format!r}")
+        gc.collect()  # no graph may be freed inside a capture (utils/graphs)
+        spk_on = self.config.model.num_speakers > 1
+        n = 0
+        buckets = sorted(token_buckets)
+        rungs = prewarm_step_rungs(self.config, buckets, max_steps)
+        for bucket in buckets:
+            for steps in rungs[bucket]:
+                for nb in batch_sizes:
+                    key = (bucket, steps, False, bool(attention_trim),
+                           bool(fast_vocoder), wire_format, nb)
+                    if key not in self._graphs:
+                        self._graphs[key] = self._graph_set.capture(
+                            functools.partial(
+                                self._vocode_chunk, max_steps=steps,
+                                trim=attention_trim, fast=fast_vocoder,
+                                wire=wire_format),
+                            torch.zeros((nb, bucket), dtype=torch.int64),
+                            torch.ones((nb,), dtype=torch.int64),
+                            (torch.zeros((nb,), dtype=torch.int64)
+                             if spk_on else None),
+                            None, torch.tensor(False))
+                    n += 1
+        return n
+
+    def prewarm_args(self, texts: Sequence[str],
+                     max_steps: Optional[int] = None,
+                     token_bucket: int = 32, attention_trim: bool = True,
+                     fast_vocoder: bool = False,
+                     wire_format: str = "int16") -> dict:
+        """The :meth:`prewarm` arguments that capture the programs a
+        ``synthesize`` call with these arguments replays: its token bucket,
+        decode steps and chunk sizes.  (``fast_vocoder`` defaults as in
+        ``synthesize``.)"""
+        symbols = self.config.data.symbol_set
+        seq_lens = [len(text_to_sequence(t, self.cleaner_names(),
+                                         symbol_set=symbols)) for t in texts]
+        bucket, steps = self._budget(seq_lens, max_steps, token_bucket)
+        return dict(token_buckets=(bucket,),
+                    batch_sizes=tuple(sorted({nb for _, _, nb in
+                                              self._chunks(len(texts))})),
+                    max_steps=steps, attention_trim=attention_trim,
+                    fast_vocoder=fast_vocoder, wire_format=wire_format)
+
+    def _budget(self, seq_lens: Sequence[int], max_steps: Optional[int],
+                token_bucket: int) -> Tuple[int, int]:
+        """(padded token length, decode steps) of a call: the longest text
+        rounded up to ``token_bucket``, and ``max_steps`` or the adaptive
+        budget of the longest text."""
+        cfg = self.config
+        steps = (max_steps if max_steps is not None else
+                 adaptive_max_steps(max(seq_lens), cfg.data.min_iters,
+                                    cfg.model.max_iters,
+                                    steps_per_token=cfg.model.steps_per_token))
+        return _round_up(max(seq_lens), token_bucket), steps
+
+    def _chunks(self, n: int) -> List[Tuple[int, int, int]]:
+        """(first, end, padded size) of each vocoder chunk of ``n``
+        utterances: at most ``VOCODER_MAX_BATCH``, padded to a power of
+        two."""
+        out = []
+        for lo in range(0, n, self.VOCODER_MAX_BATCH):
+            hi = min(n, lo + self.VOCODER_MAX_BATCH)
+            out.append((lo, hi, 1 << (hi - lo - 1).bit_length()))
+        return out
+
     # ----------------------------------------------------------- synthesize
 
     def synthesize(self, texts: Optional[Sequence[str]] = None,
@@ -491,7 +622,9 @@ class Synthesizer:
         momentum-0.99 Griffin-Lim iterations instead of 60 classic ones;
         ``wire_format="mulaw8"`` (chip path) packs 8-bit mu-law.
         ``return_alignments=False`` (chip path) skips fetching the
-        alignments.
+        alignments.  A chip-path chunk whose key :meth:`prewarm` captured
+        replays its graph, bit-equal to the eager call; the replays of
+        concurrent calls take turns on the graphs' buffers.
 
         ``collect_timings=True`` (chip path) adds ``timings``: the phases
         ``frontend_ms`` (text -> padded ids), ``dispatch_ms`` (the device
@@ -517,7 +650,8 @@ class Synthesizer:
         seq_lens = [len(s) for s in sequences]
         N = len(sequences)
 
-        bucket = _round_up(max(seq_lens), token_bucket)
+        adaptive = max_steps is None
+        bucket, steps = self._budget(seq_lens, max_steps, token_bucket)
         inputs = np.zeros((N, bucket), np.int64)
         for i, s in enumerate(sequences):
             inputs[i, :len(s)] = s
@@ -528,11 +662,6 @@ class Synthesizer:
             has_eos, np.argmax(inputs == EOS_ID, axis=1) + 1,
             np.asarray(seq_lens)).astype(np.int64)
 
-        adaptive = max_steps is None
-        steps = (max_steps if max_steps is not None else
-                 adaptive_max_steps(max(seq_lens), cfg.data.min_iters,
-                                    cfg.model.max_iters,
-                                    steps_per_token=cfg.model.steps_per_token))
         spk = None
         if cfg.model.num_speakers > 1:
             spk = (np.asarray(speaker_ids, np.int64)
@@ -581,19 +710,27 @@ class Synthesizer:
             def padded(arr, nb, fill, lo, hi):
                 out = np.full((nb,) + arr.shape[1:], fill, arr.dtype)
                 out[:hi - lo] = arr[lo:hi]
-                return torch.from_numpy(out).to(dev)
+                return torch.from_numpy(out)
 
             pending = []
-            for lo in range(0, N, self.VOCODER_MAX_BATCH):
-                hi = min(N, lo + self.VOCODER_MAX_BATCH)
-                nb = 1 << (hi - lo - 1).bit_length()  # power-of-two chunk
-                pending.append((lo, hi, self._vocode_chunk(
-                    padded(inputs, nb, 0, lo, hi),
-                    padded(input_lengths, nb, 1, lo, hi),
-                    None if spk is None else padded(spk, nb, 0, lo, hi),
-                    None if man is None else padded(man, nb, 0, lo, hi),
-                    is_manual, steps, attention_trim, fast_vocoder,
-                    wire_format)))
+            for lo, hi, nb in self._chunks(N):
+                args = (padded(inputs, nb, 0, lo, hi),
+                        padded(input_lengths, nb, 1, lo, hi),
+                        None if spk is None else padded(spk, nb, 0, lo, hi),
+                        None if man is None else padded(man, nb, 0, lo, hi),
+                        is_manual)
+                graphed = self._graphs.get(
+                    (bucket, steps, man is not None, bool(attention_trim),
+                     bool(fast_vocoder), wire_format, nb))
+                if graphed is None:
+                    out = self._vocode_chunk(
+                        *(None if a is None else a.to(dev) for a in args),
+                        steps, attention_trim, fast_vocoder, wire_format)
+                else:
+                    # the next replay overwrites the graph's outputs
+                    with self._graph_lock:
+                        out = tuple(t.clone() for t in graphed(*args))
+                pending.append((lo, hi, out))
             if collect_timings:
                 t_dispatch = time.perf_counter()
                 # chunks run in launch order: a one-element fetch from the

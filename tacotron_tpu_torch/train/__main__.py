@@ -6,9 +6,10 @@
 
 (``--load_path`` resumes a run, ``--initialize_path`` warm-starts from one.)
 
-Runs on the card; ``--device cpu`` runs on the CPU instead.  ``--preset
-tpu``, ``--prewarm`` and ``--scan_unroll`` are XLA settings and are
-refused, as is ``--distributed`` (multi-GPU is not ported yet).
+Runs on the card; ``--device cpu`` runs on the CPU instead.  ``--prewarm``
+captures the train step as one CUDA graph per bucket shape before the
+first step.  ``--preset tpu`` and ``--scan_unroll`` are XLA settings and
+are refused, as is ``--distributed`` (multi-GPU is not ported yet).
 """
 
 from __future__ import annotations
@@ -101,7 +102,9 @@ def main(argv=None) -> None:
                         help="torch device (default: cuda; raises without "
                              "a card)")
     parser.add_argument("--prewarm", action="store_true",
-                        help="refused: it compiles XLA programs")
+                        help="capture the train step as one CUDA graph per "
+                             "bucket shape before the first step; batches "
+                             "of those shapes replay it")
     parser.add_argument("--scan_unroll", default=None,
                         help="refused: an XLA unroll setting")
     parser.add_argument("--distributed", action="store_true",
@@ -112,9 +115,6 @@ def main(argv=None) -> None:
         parser.error(f"--preset {args.preset!r} applies XLA settings "
                      f"(bf16 compute, scan unroll); the port trains in "
                      f"float32 and has no preset")
-    if args.prewarm:
-        parser.error("--prewarm compiles the XLA programs of the bucket "
-                     "ladder; eager PyTorch has nothing to compile")
     if args.scan_unroll is not None:
         parser.error("--scan_unroll sets the unroll of XLA scans; the port's "
                      "loops are eager PyTorch and take no unroll")
@@ -135,6 +135,7 @@ def main(argv=None) -> None:
           webhook_url=args.webhook_url,
           skip_path_filter=args.skip_path_filter,
           blacklists=[b for b in args.blacklists.split(",") if b],
+          prewarm=args.prewarm,
           sync_every=args.sync_every,
           prefetch_depth=args.prefetch_depth,
           device=device)

@@ -20,7 +20,11 @@ it measures:
   optimizer of one batch, each alone: device kernels, busy time, idle share
   and device time by kernel group;
 - the whole step (``make_train_step``): its synchronized wall time
-  (``time_train_steps``) and one trace of it.
+  (``time_train_steps``) and one trace of it;
+- the same steps on the same batches replayed as CUDA graphs, one per
+  batch shape (``TrainStep.prewarm``): ``replay`` holds their wall time,
+  target frames per second and peak memory, ``replay_traced`` one trace,
+  and ``prewarm_s`` the capture's time.
 
 Prints one JSON object and writes it to ``--out``.  Needs a CUDA card.
 """
@@ -62,12 +66,15 @@ def time_train_steps(state, step_fn, batches, seed: int, n: int) -> dict:
     synchronized, on the host clock: the step times (``step_s``), their
     median (``sec_per_step``), the median target frames per second (a
     batch's true frames over its step's time) and the peak device memory
-    allocated over the ``n`` steps (GiB).  The one definition of the
-    whole-step numbers (this profile, ``chip_smoke.py``'s ``[train]``
-    line)."""
+    over the ``n`` steps (GiB): allocated, and reserved after the cache is
+    emptied (``peak_reserved_gib``, which counts a CUDA graph's memory
+    pool; the allocated peak does not see a replay's own memory).  The one
+    definition of the whole-step numbers (this profile, ``chip_smoke.py``'s
+    ``[train]`` and ``[graphs]`` lines)."""
     dev = state.parameters()[0].device
     step_fn(state, batch_to_device(next(batches), dev), seed)
     torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     times, frames = [], []
     for _ in range(n):
@@ -82,7 +89,8 @@ def time_train_steps(state, step_fn, batches, seed: int, n: int) -> dict:
     return {"step_s": times, "sec_per_step": statistics.median(times),
             "target_frames_per_s": statistics.median(
                 f / t for f, t in zip(frames, times)),
-            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30}
 
 
 def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
@@ -93,6 +101,7 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
         train=dataclasses.replace(base.train, decay_learning_rate_mode=1))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as the driver trains
     with tempfile.TemporaryDirectory() as tmp:
         dirs = write_synthetic_corpus(tmp, cfg, seed=seed)
         batches = DataFeeder(dirs, cfg, seed=seed).batches()
@@ -117,7 +126,7 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             gen = torch.Generator(device=dev).manual_seed(0)
-            losses, _ = forward_loss(model, cfg, batch, gen)
+            losses, outputs = forward_loss(model, cfg, batch, gen)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             losses["loss"].backward()
@@ -135,6 +144,9 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
                 times[k].append((b - a) * 1e3)
             frames.append(int(host.target_lengths.sum()))
             padded.append(tuple(host.mel_targets.shape[:2]))
+        # the last step's autograd graph would pin the parameters' gradient
+        # accumulators to the default stream and fail the captures below
+        del losses, outputs
 
         batch = batch_to_device(next(batches), dev)
         out: dict = {}
@@ -144,14 +156,25 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
                 model, cfg, batch, gen)[0]), dev)
         out["backward"] = traced(lambda: out["losses"]["loss"].backward(),
                                  dev)
+        del out["losses"]  # its autograd graph would block the captures
         out["optimizer"] = traced(lambda: optimizer.update(
             params, [p.grad for p in params], state.opt), dev)
         for p in params:
             p.grad = None
 
-        steps = time_train_steps(state, step_fn, batches, 0, repeats)
-        b = batch_to_device(next(batches), dev)
+        # the same batches eagerly, then replayed
+        host = [next(batches) for _ in range(repeats + 1)]
+        steps = time_train_steps(state, step_fn, iter(host), 0, repeats)
+        b = batch_to_device(host[-1], dev)
         whole = traced(lambda: step_fn(state, b, 0), dev)
+
+        graph_fn = make_train_step(cfg)
+        t0 = time.perf_counter()
+        n_graphs = graph_fn.prewarm(
+            state, [batch_to_device(h, dev) for h in host])
+        prewarm_s = time.perf_counter() - t0
+        replay = time_train_steps(state, graph_fn, iter(host), 0, repeats)
+        replay_traced = traced(lambda: graph_fn(state, b, 0), dev)
 
     return {
         "batch": cfg.train.batch_size, "true_frames": frames,
@@ -162,6 +185,8 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
         "feeder_group_ms": group_ms,
         "traced": {k: out[k] for k in ("forward", "backward", "optimizer")},
         **steps, "step_traced": whole,
+        "graphs": n_graphs, "prewarm_s": prewarm_s, "replay": replay,
+        "replay_traced": replay_traced,
     }
 
 

@@ -5,17 +5,20 @@ generator seeded by ``(seed, step)``, BatchNorm on batch statistics, the
 running statistics moved in place), the losses, ``backward``, and the
 clip -> Adam -> schedule update of ``train/optim.py``.  Its metrics are
 JAX's keys, kept as device tensors (``diverged`` a device bool) so the loop
-never waits on the card; the driver fetches them in batches.
+never waits on the card; the driver fetches them in batches.  The step can
+be captured as one CUDA graph per batch shape (:meth:`TrainStep.prewarm`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import gc
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..dsp.chip import features_from_waveform
+from ..utils.graphs import GraphSet, Graphed, arg_key
 from .losses import guided_attention_loss, tacotron_loss
 from .optim import Optimizer, global_norm
 from .state import TrainState
@@ -133,23 +136,47 @@ def guided_weight_at(config, step: torch.Tensor) -> Optional[torch.Tensor]:
     return base * torch.clamp(frac, 0.0, 1.0)
 
 
-def make_train_step(config, randomly_initialized: bool = True):
-    """Returns ``step_fn(state, batch, seed) -> (state, metrics)``: one
-    update of ``state`` in place (``state.step`` advanced by one) from a
-    batch on the model's device; ``seed`` with the step seeds the dropout
-    masks."""
-    optimizer = Optimizer(config.train, randomly_initialized)
+class TrainStep:
+    """``step(state, batch, seed) -> (state, metrics)``: one update of
+    ``state`` in place (``state.step`` advanced by one) from a batch on the
+    model's device; ``seed`` with the step seeds the dropout masks.
 
-    def step_fn(state: TrainState, batch: Batch,
-                seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    The device work reads two slots that the host fills before each call:
+    the step as a device scalar (a fill kernel, so no host-to-device copy),
+    and one dropout generator re-seeded with :func:`dropout_seed`.  A graph
+    captured on them therefore replays any step's schedule and masks, where
+    ``torch.full((), step)`` or a fresh generator per step would freeze the
+    capture's.
+
+    :meth:`prewarm` captures the step once per batch shape, on the state's
+    own tensors (a graph keeps their addresses); a batch of a captured shape
+    is then copied into its static buffers and replayed, any other runs
+    eagerly.  The step's metrics are then the graph's static outputs, which
+    the next step overwrites: the caller copies them out first (the driver
+    stacks them at once)."""
+
+    def __init__(self, config, randomly_initialized: bool = True):
+        self.config = config
+        self.optimizer = Optimizer(config.train, randomly_initialized)
+        self._slots: Optional[Tuple[torch.Tensor, torch.Generator]] = None
+        self._graphs: Dict[Tuple, Graphed] = {}
+        self._graph_set: Optional[GraphSet] = None
+        self._graphed_state: Optional[TrainState] = None
+
+    def _slots_on(self, device) -> Tuple[torch.Tensor, torch.Generator]:
+        if self._slots is None or self._slots[0].device != device:
+            self._slots = (torch.zeros((), dtype=torch.int32, device=device),
+                           torch.Generator(device=device))
+        return self._slots
+
+    def _device_step(self, state: TrainState,
+                     batch: Batch) -> Dict[str, torch.Tensor]:
+        """The device work of one step, on the filled slots."""
+        config = self.config
         model = state.model
         params = state.parameters()
-        dev = params[0].device
+        step_t, generator = self._slots
         model.train()
-        # device scalars made by a fill kernel: no host-to-device copy
-        step_t = torch.full((), state.step, dtype=torch.int32, device=dev)
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(dropout_seed(seed, state.step))
         gw = guided_weight_at(config, step_t)
 
         losses, _ = forward_loss(model, config, batch, generator, gw)
@@ -158,7 +185,7 @@ def make_train_step(config, randomly_initialized: bool = True):
         losses["loss"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        grad_norm = optimizer.update(params, grads, state.opt)
+        grad_norm = self.optimizer.update(params, grads, state.opt)
         for p in params:
             p.grad = None
 
@@ -169,7 +196,7 @@ def make_train_step(config, randomly_initialized: bool = True):
             "mel_loss": losses["mel_loss"].detach(),
             "linear_loss": losses["linear_loss"].detach(),
             "loss_without_coeff": losses["loss_without_coeff"].detach(),
-            "learning_rate": optimizer.schedule(step_t),
+            "learning_rate": self.optimizer.schedule(step_t),
             "grad_norm": grad_norm,
             # loss-explosion flag (reference train.py:228-230)
             "diverged": torch.logical_or(loss > 100.0, torch.isnan(loss)),
@@ -179,10 +206,57 @@ def make_train_step(config, randomly_initialized: bool = True):
             metrics["attention_loss"] = losses["attention_loss"].detach()
             if gw is not None:
                 metrics["guided_weight"] = gw
+        return metrics
+
+    def __call__(self, state: TrainState, batch: Batch,
+                 seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        step_t, generator = self._slots_on(state.parameters()[0].device)
+        step_t.fill_(state.step)
+        generator.manual_seed(dropout_seed(seed, state.step))
+        graphed = self._graphs.get(arg_key(batch))
+        if graphed is None:
+            metrics = self._device_step(state, batch)
+        elif state is not self._graphed_state:
+            raise ValueError("the step was prewarmed on another TrainState")
+        else:
+            metrics = graphed(*batch)
         state.step += 1
         return state, metrics
 
-    return step_fn
+    def prewarm(self, state: TrainState, batches: Sequence[Batch]) -> int:
+        """Capture the step once per shape of ``batches`` (device batches;
+        their values are only read by the warm-up) on ``state``'s tensors,
+        and leave those tensors as they were: the warm-up step updates the
+        parameters, moments, count and BatchNorm statistics, so they are
+        snapshot first and restored in place.  No autograd graph of the
+        state's parameters may be alive (see ``utils/graphs.py``).  Returns
+        the number of shapes the step holds graphs for."""
+        device = state.parameters()[0].device
+        gc.collect()  # no graph may be freed inside a capture (utils/graphs)
+        if self._graph_set is None:
+            self._graph_set = GraphSet(device)
+        step_t, generator = self._slots_on(device)
+        tensors = (state.parameters() + list(state.model.buffers())
+                   + state.opt.m + state.opt.v + [state.opt.count])
+        saved = [t.detach().clone() for t in tensors]
+        step_t.fill_(state.step)
+        self._graphed_state = state
+        for batch in batches:
+            key = arg_key(batch)
+            if key in self._graphs:
+                continue
+            self._graphs[key] = self._graph_set.capture(
+                lambda *fields: self._device_step(state, Batch(*fields)),
+                *batch, generators=[generator])
+        with torch.no_grad():  # in place: the graphs keep these addresses
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        return len(self._graphs)
+
+
+def make_train_step(config, randomly_initialized: bool = True) -> TrainStep:
+    """The train step of ``config`` (:class:`TrainStep`)."""
+    return TrainStep(config, randomly_initialized)
 
 
 def make_eval_step(config):

@@ -6,8 +6,9 @@ synthesizer on the port's ``Config`` (no device work): routing, CORS, input
 validation, the md5(text) wav cache, static asset serving with
 path-traversal protection, error surfacing, the long-text route, and the
 worker's coalescing and error fan-out.  Two more cases: a real
-``Synthesizer(device="cpu")`` at small widths serves a WAV, and the CLI
-refuses ``--prewarm``.
+``Synthesizer(device="cpu")`` at small widths serves a WAV, and the CLI's
+``--prewarm`` calls ``Synthesizer.prewarm`` with the root app's arguments
+before the worker starts.
 """
 
 import http.client
@@ -412,10 +413,47 @@ def test_real_synthesizer_serves_wav(tmp_path):
         httpd.shutdown()
 
 
-def test_cli_refuses_prewarm(capsys):
-    """``--prewarm`` compiles XLA programs in the JAX package; its CUDA-graph
-    counterpart is not ported, so the parser refuses it."""
-    with pytest.raises(SystemExit) as exc:
-        app_module.main(["--random_init", "--device", "cpu", "--prewarm"])
-    assert exc.value.code == 2
-    assert "CUDA-graph" in capsys.readouterr().err
+@pytest.mark.parametrize("flags,fast,wire", [
+    ([], True, "int16"),
+    (["--classic_vocoder", "--wire_format", "mulaw8"], False, "mulaw8")],
+    ids=["default", "classic-mulaw8"])
+def test_cli_prewarm_runs_before_the_worker(monkeypatch, capsys, flags,
+                                            fast, wire):
+    """``--prewarm`` calls ``Synthesizer.prewarm`` with the root app's token
+    buckets, chunk sizes, vocoder and wire format, before the worker (and
+    the HTTP thread) start."""
+    events = []
+
+    class Recorder(FakeSynth):
+        def __init__(self, device=None):
+            super().__init__(num_speakers=1)
+            self.device = device
+
+        def init_random(self, config):
+            return self
+
+        def prewarm(self, **kwargs):
+            events.append(("prewarm", kwargs))
+            return 21
+
+    class StopWorker(app_module.SynthWorker):
+        def run_forever(self):
+            events.append(("worker", None))
+
+    class NoServer:
+        def __init__(self, *args):
+            events.append(("server", None))
+
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(app_module, "Synthesizer", Recorder)
+    monkeypatch.setattr(app_module, "SynthWorker", StopWorker)
+    monkeypatch.setattr(app_module, "ThreadingHTTPServer", NoServer)
+    app_module.main(["--random_init", "--device", "cpu", "--prewarm",
+                     *flags])
+    assert [e[0] for e in events] == ["prewarm", "server", "worker"]
+    assert events[0][1] == dict(token_buckets=(32, 64, 96, 128),
+                                batch_sizes=(1, 2, 4), fast_vocoder=fast,
+                                wire_format=wire)
+    assert "prewarmed 21 serving programs" in capsys.readouterr().out

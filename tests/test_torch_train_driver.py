@@ -17,8 +17,12 @@
   checkpoint of its half-applied update; a step is checkpointed once;
   ``max_seconds`` stops the loop.
 - ``Synthesizer.load(run_dir)`` serves the trained weights.
-- The CLI trains on the CPU when asked, raises without a card otherwise,
-  and refuses the XLA flags and ``--distributed``.
+- ``prewarm=True`` logs the JAX driver's two lines, takes one program per
+  bucket shape, runs every step of those shapes through them, and ends
+  with the state of a run without it, bit for bit.
+- The CLI trains on the CPU when asked (also with ``--prewarm``), raises
+  without a card otherwise, and refuses the XLA flags and
+  ``--distributed``.
 """
 
 import dataclasses
@@ -342,7 +346,50 @@ def test_synthesizer_loads_trained_weights(corpus, tmp_path):
     assert np.isfinite(res["wavs"][0]).all()
 
 
-@pytest.mark.parametrize("flag", [["--preset", "tpu"], ["--prewarm"],
+@pytest.mark.parametrize("pad_to_corpus_max", [True, False],
+                         ids=["one-bucket", "bucket-ladder"])
+def test_train_prewarm_logs_and_keeps_state(corpus, tmp_path, monkeypatch,
+                                            pad_to_corpus_max):
+    """As ``tests/test_data.py::test_train_driver_prewarm``: the prewarm
+    lines and the bucket count; and the state after 3 steps with
+    ``prewarm=True`` equals the state without it, bit for bit."""
+    from tacotron_tpu_torch.data.feeder import DataFeeder
+    from tacotron_tpu_torch.utils import graphs
+
+    _, cfg = _config()
+    cfg = cfg.replace(data=dataclasses.replace(
+        cfg.data, pad_to_corpus_max=pad_to_corpus_max))
+    shapes = DataFeeder(corpus, cfg, data_type="train",
+                        seed=123).bucket_shapes()
+    assert (len(shapes) == 1) == pad_to_corpus_max
+    eager = str(tmp_path / "eager")
+    train(eager, corpus, cfg, num_steps=3, device="cpu")
+
+    replays = []
+    call = graphs.Graphed.__call__
+    monkeypatch.setattr(graphs.Graphed, "__call__",
+                        lambda self, *a: replays.append(1) or call(self, *a))
+    run = str(tmp_path / "run_prewarm")
+    state = train(run, corpus, cfg, num_steps=3, device="cpu", prewarm=True)
+    assert state.step == 3
+    assert len(replays) == 3
+    text = open(os.path.join(run, "train.log")).read()
+    assert f"prewarming {len(shapes)} bucket program(s)" in text
+    assert "prewarm done" in text
+    (wa, oa), (wb, ob) = _final_state(eager), _final_state(run)
+    assert set(wa) == set(wb)
+    for key in wa:
+        np.testing.assert_array_equal(wb[key], wa[key], err_msg=key)
+    assert oa["step"] == ob["step"] == 3 and oa["count"] == ob["count"] == 3
+    for moment in ("m", "v"):
+        for name in oa[moment]:
+            assert torch.equal(ob[moment][name], oa[moment][name]), name
+    losses = [[r["loss"] for r in read_metrics(
+        os.path.join(d, "metrics.jsonl"), kind="train")] for d in (eager, run)]
+    assert losses[0] == losses[1]
+
+
+@pytest.mark.parametrize("flag", [["--preset", "tpu"],
                                   ["--scan_unroll", "8"], ["--distributed"]])
 def test_cli_refuses_xla_and_multi_gpu_flags(corpus, tmp_path, flag):
     from tacotron_tpu_torch.train.__main__ import main
@@ -351,6 +398,26 @@ def test_cli_refuses_xla_and_multi_gpu_flags(corpus, tmp_path, flag):
         main([f"--data_paths={corpus[0]}", f"--log_dir={tmp_path}",
               "--device", "cpu"] + flag)
     assert os.listdir(tmp_path) == []
+
+
+def test_cli_prewarm_trains(corpus, tmp_path):
+    from tacotron_tpu_torch.config import save_config
+    from tacotron_tpu_torch.train.__main__ import main
+
+    _, cfg = _config(test_interval=2, checkpoint_interval=2)
+    cfg_path = str(tmp_path / "small.json")
+    save_config(cfg, cfg_path)
+    main([f"--data_paths={','.join(corpus)}", f"--config={cfg_path}",
+          f"--log_dir={tmp_path / 'logs'}", "--num_steps=2", "--device",
+          "cpu", "--prewarm"])
+    [run] = os.listdir(tmp_path / "logs")
+    run = str(tmp_path / "logs" / run)
+    assert checkpoint_steps(run) == [2]
+    text = open(os.path.join(run, "train.log")).read()
+    assert "prewarming" in text and "prewarm done" in text
+    trains = read_metrics(os.path.join(run, "metrics.jsonl"), kind="train")
+    assert [r["step"] for r in trains] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in trains)
 
 
 def test_cli_trains_on_the_cpu_and_needs_a_card_otherwise(corpus, tmp_path):
