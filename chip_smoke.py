@@ -92,7 +92,25 @@
    against replayed steps on the same 4 batches (step time, target
    frames/s, peak memory) with the idle share of steps 11-15.  A
    ``[graphs]`` line sums it up.
-9. Prints the kernels line, the card line, and last the result line
+9. Several processes (``parallel/``), on phase 6's corpus with every batch
+   padded to the corpus maxima (one shape).  (a) ``train()`` for 10 steps
+   at batch 16 under an NCCL group of world size 1 (the torchrun
+   environment on a free port) against the same 10 steps without a plan:
+   losses and parameters bit-equal or within 1e-6 relative; then with
+   ``prewarm``: every step replays the one graph, equal to the eager run.
+   (b) Two ranks on the one card (this script run twice as a worker, a
+   gloo group over CUDA tensors, NCCL refusing a device twice) at batch 8
+   each, 3 steps with dropout on, against one process at batch 16 over the
+   same rows: losses within rtol 1e-5, parameters within rtol 1e-4 and atol
+   1e-6, the ranks bit-equal.  (c) ``make_sharded_synthesis`` on the
+   world-size-1 plan, 4 sentences at 50 steps: default engines (no kernel),
+   ``griffin_lim_impl="pallas", ola_impl="pallas"`` (K3 once per iteration,
+   K2 once more), each waveform within 1e-4 of the peak of the same
+   computation without a plan, and ``"fused"`` refused.  (d) The plain and
+   the data-parallel step timed eagerly and replayed on the same 4 batches,
+   the collectives a step calls and a capture records, one traced replay
+   (its NCCL kernels), the roofline MFU; a ``[parallel]`` line.
+10. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -1557,11 +1575,12 @@ def run_losses_and_params(run: str):
     return losses, dict(np.load(checkpoint_path(run)))
 
 
-def run_spread(a, b) -> tuple:
+def run_spread(a, b, steps: int = 30) -> tuple:
     """(largest per-step loss difference over the loss, largest parameter
-    difference over the largest parameter) between two runs."""
+    difference over the largest parameter) between two runs of
+    ``steps`` steps."""
     (la, pa), (lb, pb) = a, b
-    require(len(la) == len(lb) == 30, f"{len(la)} and {len(lb)} steps")
+    require(len(la) == len(lb) == steps, f"{len(la)} and {len(lb)} steps")
     loss = max(abs(x - y) / abs(x) for x, y in zip(la, lb))
     peak = max(float(np.abs(v).max()) for v in pa.values())
     param = max(float(np.abs(pa[k] - pb[k]).max()) for k in pa) / peak
@@ -1690,6 +1709,385 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- parallel
+
+def parallel_config():
+    """Phase 6's config with every batch padded to the corpus maxima: one
+    batch shape (one graph to capture; one shape on every rank)."""
+    import dataclasses
+
+    cfg = train_config(decay_learning_rate_mode=1, test_interval=1000,
+                       checkpoint_interval=10)
+    return cfg.replace(data=dataclasses.replace(cfg.data,
+                                                pad_to_corpus_max=True))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rows_steps(cfg, dirs, dev, plan, rows, n: int = 3) -> dict:
+    """``n`` train steps from seed 0 on ``rows`` of the first ``n`` global
+    batches of 16 (a plan's rank: its rows through ``shard_batch``):
+    the losses, the first step's gradient norm and Adam first moment
+    (``(1 - b1)`` times its clipped gradient, by name) and the final
+    parameters."""
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.parallel import shard_batch, shard_params
+    from tacotron_tpu_torch.train.state import create_train_state
+    from tacotron_tpu_torch.train.step import (Batch, batch_to_device,
+                                               make_train_step)
+
+    state = create_train_state(cfg, seed=0, device=dev)
+    if plan is not None:
+        shard_params(plan, state.model)
+    names = [k for k, _ in state.model.named_parameters()]
+    step = make_train_step(cfg, plan)
+    batches = DataFeeder(dirs, cfg, batch_size=16, seed=6).batches()
+    out = {"losses": [], "m1": None}
+    for _ in range(n):
+        part = Batch(*(None if x is None else x[rows] for x in next(batches)))
+        batch = (batch_to_device(part, dev) if plan is None
+                 else shard_batch(plan, part, dev))
+        state, metrics = step(state, batch, 1)
+        out["losses"].append(float(metrics["loss"]))
+        if out["m1"] is None:
+            out["grad_norm1"] = float(metrics["grad_norm"])
+            out["m1"] = {k: m.cpu().numpy()
+                         for k, m in zip(names, state.opt.m)}
+    out["params"] = {k: p.detach().cpu().numpy()
+                     for k, p in state.model.named_parameters()}
+    return out
+
+
+def parallel_worker(argv) -> int:
+    """Phase 9 (b): one of two ranks on the one card, a gloo group over
+    CUDA tensors; writes its losses and parameters."""
+    import argparse
+    import os
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parallel-rank", type=int, required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--corpus", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", default="cuda:0")
+    args = ap.parse_args(argv)
+    os.environ.update(RANK=str(args.parallel_rank), WORLD_SIZE="2",
+                      LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(args.port))
+    from tacotron_tpu_torch.parallel import distributed_initialize, make_mesh
+    from tacotron_tpu_torch.parallel.distributed import shutdown
+
+    dev = torch.device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    distributed_initialize(device=dev, backend="gloo")
+    try:
+        cfg = parallel_config()
+        plan = make_mesh(cfg.mesh)
+        require(plan.data_size == 2 and plan.backend == "gloo",
+                f"(b) plan {plan.grid} on {plan.backend}")
+        r = plan.data_index
+        got = rows_steps(cfg, args.corpus.split(","), dev, plan,
+                         slice(8 * r, 8 * r + 8))
+        np.savez(os.path.join(args.out, f"rank{r}.npz"),
+                 losses=np.asarray(got["losses"]),
+                 grad_norm1=got["grad_norm1"],
+                 **{f"m1/{k}": v for k, v in got["m1"].items()},
+                 **{f"p/{k}": v for k, v in got["params"].items()})
+    finally:
+        shutdown()
+    return 0
+
+
+def start_two_ranks(dirs, out: str, dev):
+    """Phase 9 (b)'s two worker processes, started."""
+    port = free_port()
+    return [subprocess.Popen(
+        [sys.executable, __file__, "--parallel-rank", str(r), "--port",
+         str(port), "--corpus", ",".join(dirs), "--out", out, "--device",
+         str(dev)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def parallel_phase(dev, main: dict, trained: dict, tmp: str) -> dict:
+    """Phase 9 (a)-(d) of the module docstring.  Returns its numbers."""
+    import dataclasses
+    import os
+
+    import torch.distributed as dist
+
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.parallel import (collectives,
+                                             distributed_initialize,
+                                             make_mesh, runtime_info)
+    from tacotron_tpu_torch.parallel.distributed import shutdown
+    from tacotron_tpu_torch.synth.synthesizer import make_sharded_synthesis
+    from tacotron_tpu_torch.text import text_to_sequence
+    from tacotron_tpu_torch.train.checkpoint import CheckpointManager
+    from tacotron_tpu_torch.train.driver import train
+    from tacotron_tpu_torch.train.profile import roofline, time_train_steps
+    from tacotron_tpu_torch.train.state import create_train_state
+    from tacotron_tpu_torch.train.step import (TrainStep, batch_to_device,
+                                               make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg, dirs = parallel_config(), trained["corpus"]
+    # (b)'s ranks run beside (a), which is not timed
+    b_out = os.path.join(tmp, "two_ranks")
+    os.makedirs(b_out)
+    workers = start_two_ranks(dirs, b_out, dev)
+    out: dict = {}
+    try:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="localhost",
+                          MASTER_PORT=str(free_port()))
+        distributed_initialize(device=dev)
+        info = runtime_info()
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        require(info["backend"] == backend and info["process_count"] == 1,
+                f"(a) process group {info}")
+        plan = make_mesh(cfg.mesh)
+        require(plan.shard is not None and plan.data_size == 1,
+                f"(a) plan {plan}")
+
+        # (a) 10 steps plain, data-parallel, data-parallel replayed
+        runs = {k: os.path.join(tmp, f"run_{k}")
+                for k in ("plain", "dp", "dp_graphs")}
+        steps_made = []
+        prewarm = TrainStep.prewarm
+
+        def keep(self, state, batches):
+            steps_made.append(self)
+            return prewarm(self, state, batches)
+
+        t0 = time.perf_counter()
+        train(runs["plain"], dirs, cfg, num_steps=10, device=dev)
+        train(runs["dp"], dirs, cfg, num_steps=10, device=dev, plan=plan)
+        TrainStep.prewarm = keep
+        try:
+            train(runs["dp_graphs"], dirs, cfg, num_steps=10, device=dev,
+                  plan=plan, prewarm=True)
+        finally:
+            TrainStep.prewarm = prewarm
+        wall_a = time.perf_counter() - t0
+        replayed = sum(g.replays for s in steps_made
+                       for g in s._graphs.values())
+        require(len(steps_made) == 1 and replayed == 10,
+                f"(a) {replayed} of 10 steps replayed a graph")
+        got = {k: run_losses_and_params(v) for k, v in runs.items()}
+        dp_err = run_spread(got["plain"], got["dp"], 10)
+        graph_err = run_spread(got["dp"], got["dp_graphs"], 10)
+        require(max(dp_err + graph_err) <= 1e-6,
+                f"(a) data-parallel vs plain {dp_err}, replayed vs eager "
+                f"{graph_err} (loss, parameters; limit 1e-6)")
+        out.update(dp_vs_plain=dp_err, replay_vs_eager=graph_err,
+                   wall_a_s=wall_a, runtime_info=info)
+        log(f"[parallel] (a) NCCL world size 1, 10 steps at batch 16 "
+            f"(corpus-max shape): data-parallel against plain: loss "
+            f"{dp_err[0]:.3e}, parameters {dp_err[1]:.3e} (relative); "
+            f"prewarmed (10 of 10 steps replayed) against eager: loss "
+            f"{graph_err[0]:.3e}, parameters {graph_err[1]:.3e}; "
+            f"{wall_a:.1f} s for the three runs")
+
+        # (b) two ranks on the one card
+        single = rows_steps(cfg, dirs, dev, None, slice(0, 16))
+        logs = []
+        for p in workers:
+            logs.append(p.communicate(timeout=300)[0])
+        for p, text in zip(workers, logs):
+            require(p.returncode == 0,
+                    f"(b) a rank failed (exit {p.returncode}):\n"
+                    f"{text[-3000:]}")
+        two = []
+        for r in range(2):
+            raw = np.load(os.path.join(b_out, f"rank{r}.npz"))
+            two.append(dict(
+                losses=raw["losses"], grad_norm1=float(raw["grad_norm1"]),
+                **{g: {k[len(g) + 1:]: raw[k] for k in raw.files
+                       if k.startswith(g + "/")} for g in ("m1", "p")}))
+        require(all(np.array_equal(two[0][g][k], two[1][g][k])
+                    for g in ("m1", "p") for k in two[0][g]),
+                "(b) the ranks' parameters differ")
+        got = two[0]
+        loss_rel = (np.abs(got["losses"] - single["losses"])
+                    / np.abs(single["losses"]))
+        # the first step's gradients through Adam's first moment, over the
+        # global norm (the measure of tests/test_torch_train_step.py)
+        g = single["grad_norm1"]
+        scale = (min(1.0, cfg.train.grad_clip_norm / g) * g
+                 * (1.0 - cfg.train.adam_beta1))
+        grad_err = max(float(np.abs(got["m1"][k] - v).max()) / scale
+                       for k, v in single["m1"].items())
+        # After step 1 the runs part: Adam's first updates are about
+        # lr * sign(g), so an element whose gradient lies within the two
+        # summation orders' rounding moves the other way in one run; its
+        # change then feeds the next forward.  Steps 2-3 are held within
+        # the 2 lr a step such a flip can open (a broken collective
+        # exceeds it at once); how far they stay within the CPU test's
+        # rtol 1e-4 / atol 1e-6 (tests/test_torch_parallel.py, small
+        # widths) is reported.
+        lr_bound = 2 * cfg.train.initial_learning_rate * 3
+        drift = max(float(np.abs(got["p"][k] - v).max())
+                    for k, v in single["params"].items())
+        beyond = sum(int(np.sum(np.abs(got["p"][k] - v)
+                                > 1e-6 + 1e-4 * np.abs(v)))
+                     for k, v in single["params"].items())
+        total = sum(v.size for v in single["params"].values())
+        param_rel = run_spread((single["losses"], single["params"]),
+                               (got["losses"], got["p"]), 3)[1]
+        log(f"[parallel] (b) two ranks on one card (gloo over CUDA "
+            f"tensors), batch 8 each, 3 steps, dropout on, against one "
+            f"process at batch 16: losses {got['losses'].tolist()} vs "
+            f"{single['losses']} (rel {loss_rel.tolist()}); step 1 "
+            f"gradients max abs / norm {grad_err:.3e}; after 3 steps the "
+            f"parameters at most {drift:.3e} apart (bound {lr_bound}), "
+            f"{beyond} of {total} elements beyond rtol 1e-4 / atol 1e-6; "
+            f"ranks bit-equal")
+        require(loss_rel[0] <= 1e-5 and grad_err <= 1e-4
+                and drift <= lr_bound,
+                f"(b) two ranks vs one process: step-1 loss rel "
+                f"{loss_rel[0]} (limit 1e-5), step-1 gradients {grad_err} "
+                f"of the norm (limit 1e-4), parameters after 3 steps "
+                f"{drift} apart (limit {lr_bound})")
+        out.update(two_ranks_loss_rel=loss_rel.tolist(),
+                   two_ranks_grad_err=grad_err, two_ranks_drift=drift,
+                   two_ranks_beyond=(beyond, total),
+                   two_ranks_param_rel=param_rel)
+
+        # (c) sharded synthesis on the world-size-1 plan
+        synth = main["synth"]
+        cleaners = list(synth.config.data.cleaner_names())
+        seqs = [text_to_sequence(t, cleaners) for t in KOREAN]
+        inputs = np.zeros((len(seqs), max(map(len, seqs))), np.int64)
+        for i, q in enumerate(seqs):
+            inputs[i, :len(q)] = q
+        lengths = np.asarray([len(q) for q in seqs], np.int64)
+        speakers = np.asarray([0, 1, 0, 1], np.int64)
+        synth_out = {}
+        for name, kw in (("default", {}),
+                         ("pallas", dict(griffin_lim_impl="pallas",
+                                         ola_impl="pallas"))):
+            c = synth.config.replace(audio=dataclasses.replace(
+                synth.config.audio, **kw))
+            fn = make_sharded_synthesis(c, plan, 50)
+            zero_counts()
+            t0 = time.perf_counter()
+            wavs, aligns = fn(synth.model, inputs, lengths, speakers)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            want_w, want_a = make_sharded_synthesis(c, None, 50)(
+                synth.model, inputs, lengths, speakers)
+            err = float((wavs - want_w).abs().max() / want_w.abs().max())
+            al = float((aligns - want_a).abs().max())
+            require(wavs.shape == want_w.shape and bool(
+                torch.isfinite(wavs).all()) and err <= 1e-4 and al <= 1e-4,
+                f"(c) {name}: waveforms {err} of the peak, alignments {al}")
+            synth_out[name] = dict(counts=counts, wall_s=wall, err=err)
+        iters = synth.config.audio.griffin_lim_iters
+        require(not any(synth_out["default"]["counts"].values()),
+                f"(c) default engines launched {synth_out['default']}")
+        require(synth_out["pallas"]["counts"] == {
+            "K1": 0, "K2": iters + 1, "K3": iters},
+            f"(c) pallas engines launched {synth_out['pallas']['counts']}, "
+            f"not K3 {iters} and K2 {iters + 1}")
+        fused = synth.config.replace(audio=dataclasses.replace(
+            synth.config.audio, griffin_lim_impl="fused"))
+        try:
+            make_sharded_synthesis(fused, plan, 50)
+            require(False, "(c) 'fused' was not refused")
+        except ValueError:
+            pass
+        out["synthesis"] = synth_out
+        log(f"[parallel] (c) make_sharded_synthesis, 4 sentences x 50 "
+            f"steps, {iters} iterations: default engines "
+            f"{synth_out['default']['wall_s']:.3f} s, launches "
+            f"{synth_out['default']['counts']}, waveforms "
+            f"{synth_out['default']['err']:.3e} of the peak from the "
+            f"unsharded call; pallas engines "
+            f"{synth_out['pallas']['wall_s']:.3f} s, launches "
+            f"{synth_out['pallas']['counts']}, "
+            f"{synth_out['pallas']['err']:.3e}; 'fused' refused")
+
+        # (d) the plain and data-parallel steps on the same 4 batches
+        state = CheckpointManager(runs["plain"], cfg).restore(
+            create_train_state(cfg, seed=0, device=dev))
+        batches = DataFeeder(dirs, cfg, seed=5).batches()
+        host = [next(batches) for _ in range(4)]
+        timing, traces, graph_fns = {}, {}, {}
+        for name, p in (("plain", None), ("dp", plan)):
+            collectives.calls = 0
+            timing[f"{name}_eager"] = time_train_steps(
+                state, make_train_step(cfg, p), iter(host), 1, 3)
+            per_step = collectives.calls / 4    # the warm-up and 3 steps
+            graph_fns[name] = make_train_step(cfg, p)
+            collectives.calls = 0
+            graph_fns[name].prewarm(state, [batch_to_device(host[0], dev)])
+            out[f"{name}_collectives"] = (per_step, collectives.calls)
+        # the replays alternate, twice each: 6 timed steps of each
+        for _ in range(2):
+            for name in ("plain", "dp"):
+                t = time_train_steps(state, graph_fns[name], iter(host), 1,
+                                     3)
+                timing.setdefault(f"{name}_replay", []).extend(t["step_s"])
+        b = batch_to_device(host[0], dev)
+        collectives.calls = 0
+        for name in ("plain", "dp"):
+            _, traces[name] = traced(lambda: graph_fns[name](state, b, 1))
+        require(collectives.calls == 0,
+                "(d) a replay called a collective from Python")
+        by = traces["dp"]
+        nccl_n = by["device_launches_by_group"].get("collectives (NCCL)", 0)
+        nccl_ms = by["device_ms_by_group"].get("collectives (NCCL)", 0.0)
+        step_s = {k: (v["step_s"] if isinstance(v, dict) else v)
+                  for k, v in timing.items()}
+        roof = roofline(cfg, host[1:] * 2, {"step_s": step_s["dp_eager"]},
+                        {"step_s": step_s["dp_replay"]})
+        out.update(timing={k: statistics.median(v)
+                           for k, v in step_s.items()},
+                   step_s=step_s, nccl_kernels=nccl_n, nccl_ms=nccl_ms,
+                   roofline=roof,
+                   replay_kernels={k: v["device_kernels"]
+                                   for k, v in traces.items()},
+                   replay_busy_ms={k: v["device_busy_ms"]
+                                   for k, v in traces.items()},
+                   replay_traced_s={k: v["wall_s"]
+                                    for k, v in traces.items()})
+        t = out["timing"]
+        (pe, pc), (de, dc) = out["plain_collectives"], out["dp_collectives"]
+        busy, tw = out["replay_busy_ms"], out["replay_traced_s"]
+        log(f"[parallel] (d) step at batch 16 (corpus-max shape), median "
+            f"of 3 eager and 6 replayed (alternating): plain "
+            f"{t['plain_eager']:.4f} s eager, "
+            f"{t['plain_replay']:.4f} s replayed; data-parallel (NCCL, "
+            f"world size 1) {t['dp_eager']:.4f} s eager, "
+            f"{t['dp_replay']:.4f} s replayed; a data-parallel step calls "
+            f"{de:g} collectives (plain {pe:g}), its capture recorded {dc} "
+            f"with the warm-up's; one traced replay: {nccl_n} NCCL kernels, "
+            f"{nccl_ms:.4f} ms (of {out['replay_kernels']['dp']} kernels, "
+            f"device busy {busy['dp']:.1f} ms of {tw['dp']:.4f} s; plain "
+            f"{out['replay_kernels']['plain']} kernels, {busy['plain']:.1f} "
+            f"ms of {tw['plain']:.4f} s); roofline "
+            f"{roof['total_flops'][0] / 1e9:.1f} GFLOP a step, MFU "
+            f"{roof['mfu_pct'][0]:.3f} % eager, {roof['mfu_pct'][1]:.3f} % "
+            f"replayed of {roof['peak_tflops']:.0f} TFLOP/s fp32")
+    finally:
+        for p in workers:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutdown()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1747,6 +2145,7 @@ def main() -> int:
         graphs = serving_graphs(main, tmp)
         graphs["train"] = train_graphs(dev, trained, tmp)
         graphs["wall_s"] = time.perf_counter() - t8
+        par = parallel_phase(dev, main, trained, tmp)
     for k, name in zip(kernels, ("K1", "K2", "K3")):
         k["launches_serving"] = {step: v[name]
                                  for step, v in serve["launches"].items()}
@@ -1781,6 +2180,19 @@ def main() -> int:
         # counted in a trace of each call's replay
         k["launches_graphs"] = {c: g[c]["launches"][name]
                                 for c in ("a", "b", "c")}
+        # make_sharded_synthesis, phase 9 (c)
+        k["launches_parallel"] = {
+            c: par["synthesis"][c]["counts"][name]
+            for c in ("default", "pallas")}
+    t = par["timing"]
+    log(f"[parallel] data-parallel step (NCCL, world size 1) "
+        f"{t['dp_eager']:.4f} s eager, {t['dp_replay']:.4f} s replayed; "
+        f"plain step {t['plain_eager']:.4f} s, {t['plain_replay']:.4f} s; "
+        f"all-reduce in one traced replay {par['nccl_kernels']} kernels, "
+        f"{par['nccl_ms']:.4f} ms; MFU replayed "
+        f"{par['roofline']['mfu_pct'][1]:.3f} % of "
+        f"{par['roofline']['peak_tflops']:.0f} TFLOP/s fp32; phase 9 wall "
+        f"time {par['wall_s']:.1f} s on {card}")
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")
@@ -1799,4 +2211,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--parallel-rank" in sys.argv:
+        sys.exit(parallel_worker(sys.argv[1:]))
     sys.exit(main())

@@ -116,6 +116,11 @@ class ModelConfig:
     decoder_unroll: int = 1
     rnn_unroll: int = 1
 
+    def scaled(self, factor: int) -> "ModelConfig":
+        """Method form of :func:`scale_model_widths`:
+        ``ModelConfig().scaled(2)``."""
+        return scale_model_widths(self, factor)
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -171,7 +176,8 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout (kept for config compatibility)."""
+    """The rank grid of ``parallel/mesh.py``: ``data_parallelism`` ranks
+    (-1: every rank the model axis leaves) by ``model_parallelism``."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -235,3 +241,40 @@ def save_config(config: Config, path: str) -> None:
 def load_config(path: str) -> Config:
     with open(path) as fh:
         return Config.from_json(fh.read())
+
+
+def scale_model_widths(model: ModelConfig, factor: int) -> ModelConfig:
+    """The reference's ``SCALE_FACTOR`` width divider (its ``hparams.py``)
+    as a pure function: every hidden width the reference wraps in ``f()``
+    is divided by ``factor`` (speaker and character embeddings; prenet,
+    bank, projection, RNN and attention sizes); output dimensions
+    (``num_mels``, ``num_freq``) and structural counts (bank K, highway
+    depth, layers, r) are untouched, as in the reference:
+
+        cfg.replace(model=scale_model_widths(cfg.model, 4))
+    """
+    if factor < 1:
+        raise ValueError(f"factor must be >= 1, got {factor}")
+
+    def f(n: int) -> int:
+        return max(1, n // factor)
+
+    return dataclasses.replace(
+        model,
+        speaker_embedding_size=f(model.speaker_embedding_size),
+        embedding_size=f(model.embedding_size),
+        enc_prenet_sizes=tuple(f(n) for n in model.enc_prenet_sizes),
+        enc_bank_channel_size=f(model.enc_bank_channel_size),
+        enc_rnn_size=f(model.enc_rnn_size),
+        enc_proj_sizes=tuple(f(n) for n in model.enc_proj_sizes),
+        attention_size=f(model.attention_size),
+        attention_state_size=f(model.attention_state_size),
+        dec_rnn_size=f(model.dec_rnn_size),
+        dec_prenet_sizes=tuple(f(n) for n in model.dec_prenet_sizes),
+        post_bank_channel_size=f(model.post_bank_channel_size),
+        post_rnn_size=f(model.post_rnn_size),
+        # the last post projection stays num_mels for the residual add
+        post_proj_sizes=tuple(
+            f(n) for n in model.post_proj_sizes[:-1]
+        ) + (model.post_proj_sizes[-1],),
+    )

@@ -15,6 +15,11 @@ the convolutions transpose to [N, C, T] around ``F.conv1d``.
   flax does (momentum 0.99, the biased variance).
 - Dropout draws its masks from the ``torch.Generator`` the caller passes,
   so a train step's masks are a function of that generator's seed alone.
+- Under data parallelism (a ``DataShard`` of ``parallel/collectives.py``
+  passed as ``shard``) both act on the global batch, as the JAX step's
+  one program does: BatchNorm's statistics are sums over every rank's rows,
+  and dropout draws the global batch's mask and keeps this rank's rows, so
+  N ranks compute what one process computes on their rows concatenated.
 """
 
 from __future__ import annotations
@@ -29,16 +34,24 @@ from ..ops.rnn import BiGRU
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            shard=None) -> torch.Tensor:
     """flax ``nn.Dropout``: zero each element with probability ``rate`` and
     scale the kept ones by ``1 / (1 - rate)``; the uniform draws come from
-    ``generator`` (on ``x``'s device)."""
+    ``generator`` (on ``x``'s device).  With a ``shard`` the draws cover
+    the global batch (``shard.size`` times ``x``'s rows) and this rank
+    keeps its rows of them."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training mode needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
+    shape = tuple(x.shape)
+    if shard is not None:
+        shape = (shape[0] * shard.size,) + shape[1:]
+    keep = torch.rand(shape, generator=generator, device=x.device,
                       dtype=x.dtype) >= rate
+    if shard is not None:
+        keep = shard.rows(keep)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -56,11 +69,12 @@ class Prenet(nn.Module):
             self.add_module(f"dense_{i + 1}", nn.Linear(sizes[i], sizes[i + 1]))
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
         for i in range(self.num_layers):
             x = F.relu(getattr(self, f"dense_{i + 1}")(x))
             if self.training:
-                x = dropout(x, self.dropout_rate, generator)
+                x = dropout(x, self.dropout_rate, generator, shard)
         return x
 
 
@@ -139,7 +153,13 @@ class BatchNorm(nn.Module):
     included; ``var = max(0, E[x^2] - E[x]^2)`` (the biased variance); and
     the running statistics move as ``0.99 * running + 0.01 * batch``.
     ``F.batch_norm`` would put the unbiased variance into ``running_var``
-    and compute the variance another way, so this is written out."""
+    and compute the variance another way, so this is written out.
+
+    With a ``shard`` (training mode) the per-channel mean and mean of
+    squares are summed over the data group through a differentiable
+    all-reduce and divided by its size: flax's statistics over the global
+    batch, and the same running statistics on every rank.  ``SyncBatchNorm``
+    would compute another variance and keep the unbiased one."""
 
     EPS = 1e-3
     MOMENTUM = 0.99
@@ -151,14 +171,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         if not self.training:
             mul = torch.rsqrt(self.running_var + self.EPS) * self.weight
             return (x - self.running_mean) * mul + self.bias
         axes = tuple(range(x.dim() - 1))
         mean = x.mean(dim=axes)
-        var = torch.clamp(
-            (x * x).mean(dim=axes) - mean * mean, min=0.0)
+        mean_sq = (x * x).mean(dim=axes)
+        if shard is not None:
+            # every rank's batch has one shape, so the mean of the ranks'
+            # means is the global batch's (and one rank's is its own)
+            moments = shard.sum(torch.stack([mean, mean_sq])) / shard.size
+            mean, mean_sq = moments[0], moments[1]
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean
@@ -211,15 +236,15 @@ class CBHG(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
                 before_highway: Optional[torch.Tensor] = None,
-                rnn_init_state: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        conv = self.bank_bn(F.relu(self.conv_bank(x)))
+                rnn_init_state: Optional[torch.Tensor] = None,
+                shard=None) -> torch.Tensor:
+        conv = self.bank_bn(F.relu(self.conv_bank(x)), shard)
         proj = max_pool_same(conv, self.maxpool_width)
         for idx in range(self.num_proj):
             proj = getattr(self, f"proj_{idx + 1}")(proj)
             if idx != self.num_proj - 1:
                 proj = F.relu(proj)
-            proj = getattr(self, f"proj_{idx + 1}_bn")(proj)
+            proj = getattr(self, f"proj_{idx + 1}_bn")(proj, shard)
 
         highway_input = proj + x
         if before_highway is not None:

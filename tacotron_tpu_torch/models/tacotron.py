@@ -25,7 +25,8 @@ step by step), and the BatchNorms use and update batch statistics.  The JAX
 model folds the train step into its dropout key and splits it per decoder
 step; here one generator, seeded per step by the caller, gives masks that
 are a function of that seed alone (bit equality with JAX's masks is not a
-goal).
+goal).  Under data parallelism ``data_shard`` (a ``DataShard``) makes the
+BatchNorms and the dropout masks global (``models/modules.py``).
 
 Speaker conditioning ('single', 'deepvoice', 'simple'): 'deepvoice' feeds a
 softsign Dense of the speaker embedding to the CBHG pre-highway bias, the
@@ -91,9 +92,9 @@ class DecoderStep(nn.Module):
 
     def forward(self, x, attn_state, context, alignments, dec_states, keys,
                 values, speaker, manual_t=None, is_manual=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, shard=None):
         cfg = self.cfg
-        pre = self.prenet(torch.cat([x, context], dim=-1), generator)
+        pre = self.prenet(torch.cat([x, context], dim=-1), generator, shard)
         if speaker is not None:
             pre = torch.cat([pre, speaker], dim=-1)
         attn_state = self.attention_rnn(attn_state, pre)
@@ -210,12 +211,15 @@ class Tacotron(nn.Module):
 
     def encode(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                cond: SpeakerConditioning,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               shard=None) -> torch.Tensor:
         """Token ids [N, T_in] -> memory [N, T_in, 2*enc_rnn_size]."""
-        pre = self.encoder_prenet(self.char_embedding(inputs), generator)
+        pre = self.encoder_prenet(self.char_embedding(inputs), generator,
+                                  shard)
         return self.encoder_cbhg(pre, input_lengths,
                                  before_highway=cond.before_highway,
-                                 rnn_init_state=cond.encoder_rnn_init)
+                                 rnn_init_state=cond.encoder_rnn_init,
+                                 shard=shard)
 
     # ------------------------------------------------------------ decoder
 
@@ -224,8 +228,8 @@ class Tacotron(nn.Module):
                     cond: SpeakerConditioning,
                     manual_alignments: Optional[torch.Tensor] = None,
                     is_manual: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    generator: Optional[torch.Generator] = None,
+                    shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (frames [N, steps, M*r], alignments [N, steps, T_in])."""
         cfg = self.cfg
         N, T_in, memory_dim = memory.shape
@@ -253,7 +257,7 @@ class Tacotron(nn.Module):
             frames, attn_state, context, alignments, dec_states = \
                 self.decoder(x, attn_state, context, alignments, dec_states,
                              keys, memory, cond.embed, manual_t, is_manual,
-                             generator)
+                             generator, shard)
             prev_frame = frames[:, -cfg.num_mels:]
             all_frames.append(frames)
             all_aligns.append(alignments)
@@ -267,17 +271,19 @@ class Tacotron(nn.Module):
                 max_steps: Optional[int] = None,
                 manual_alignments: Optional[torch.Tensor] = None,
                 is_manual: Optional[torch.Tensor] = None,
-                dropout_generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                dropout_generator: Optional[torch.Generator] = None,
+                data_shard=None) -> Dict[str, torch.Tensor]:
         """Teacher-forced when ``mel_targets`` is given, greedy otherwise.
         Returns ``mel_outputs`` [N, T_out, M], ``linear_outputs``
         [N, T_out, F] and ``alignments`` [N, T_in, T_dec].
         ``dropout_generator`` feeds the prenets' dropout in training mode
-        (the post-net has none)."""
+        (the post-net has none); ``data_shard`` makes the training-mode
+        statistics and masks global over the data group."""
         cfg = self.cfg
         r = cfg.reduction_factor
         cond = self.speaker_conditioning(speaker_id)
-        memory = self.encode(inputs, input_lengths, cond, dropout_generator)
+        memory = self.encode(inputs, input_lengths, cond, dropout_generator,
+                             data_shard)
 
         if mel_targets is not None:
             taken = mel_targets[:, r - 1::r, :]
@@ -290,11 +296,11 @@ class Tacotron(nn.Module):
 
         frames, align_history = self.run_decoder(
             memory, num_steps, decoder_inputs, cond, manual_alignments,
-            is_manual, dropout_generator)
+            is_manual, dropout_generator, data_shard)
         N = inputs.shape[0]
         mel_outputs = frames.reshape(N, num_steps * r, cfg.num_mels)
 
-        post = self.post_cbhg(mel_outputs, None)
+        post = self.post_cbhg(mel_outputs, None, shard=data_shard)
         if cond.embed is not None:
             tiled = cond.embed[:, None, :].expand(N, post.shape[1], -1)
             post = torch.cat([tiled, post], dim=-1)

@@ -59,6 +59,8 @@ def kernel_group(name: str) -> str:
         if own in name:
             return own
     low = name.lower()
+    if "nccl" in low:
+        return "collectives (NCCL)"
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "matmul")):
         return "matrix products (cuBLAS)"
     if "fft" in low:

@@ -343,6 +343,65 @@ def attention_health(alignment: np.ndarray,
     }
 
 
+def make_sharded_synthesis(config: Config, plan, max_steps: int):
+    """Batched synthesis over the data axis of a mesh ``plan``: greedy
+    decode and the Griffin-Lim vocoder, each rank on its block of rows, the
+    counterpart of the JAX package's ``make_sharded_synthesis``.
+
+    Returns ``fn(model, inputs, input_lengths, speaker_id) -> (wavs,
+    alignments)``.  Every rank passes the global batch ([N, T_in] token ids,
+    [N] lengths, [N] speaker ids or None) and the same ``model`` (weights
+    placed by ``parallel.mesh.shard_params``); rank ``r`` of the data group
+    decodes and vocodes row block ``r``, and an all-gather returns the
+    global ``wavs`` [N, samples] and ``alignments`` [N, T_in, max_steps] on
+    every rank (where JAX returns arrays sharded on the batch).  ``N`` must
+    divide by the data axis.
+
+    The engine rules are JAX's: ``griffin_lim_impl="auto"`` runs
+    ``"matmul_half"`` and ``ola_impl="auto"`` the plain overlap-add
+    (``"xla"``); ``"fused"`` raises; an explicit ``ola_impl="pallas"`` (the
+    overlap-add kernel) or ``griffin_lim_impl="pallas"`` (the spectral-step
+    kernel, with the overlap-add kernel) runs its kernel.  Without a
+    process group the plan has no data group and one process runs every
+    row."""
+    audio_cfg = config.audio
+    if audio_cfg.ola_impl == "auto":
+        audio_cfg = dataclasses.replace(audio_cfg, ola_impl="xla")
+    if audio_cfg.griffin_lim_impl == "auto":
+        audio_cfg = dataclasses.replace(audio_cfg,
+                                        griffin_lim_impl="matmul_half")
+    elif audio_cfg.griffin_lim_impl == "fused":
+        raise ValueError(
+            "griffin_lim_impl='fused' (a Pallas kernel) is not validated "
+            "under SPMD partitioning; use 'auto' or an XLA engine "
+            "('matmul_half'/'matmul_bf16'/'fft') for sharded synthesis")
+    shard = None if plan is None else plan.shard
+
+    @torch.inference_mode()
+    def fn(model, inputs, input_lengths, speaker_id):
+        dev = next(model.parameters()).device
+        rows = [None if x is None else torch.as_tensor(x).to(dev)
+                for x in (inputs, input_lengths, speaker_id)]
+        if shard is not None:
+            if rows[0].shape[0] % shard.size:
+                raise ValueError(
+                    f"the global batch of {rows[0].shape[0]} does not "
+                    f"divide over the data axis's {shard.size} ranks")
+            rows = [None if x is None else shard.rows(x) for x in rows]
+        ids, lengths, speakers = rows
+        if config.model.num_speakers <= 1:
+            speakers = None
+        out = model(ids, lengths, speaker_id=speakers, max_steps=max_steps)
+        wavs = dsp_chip.batched_linear_to_waveform(out["linear_outputs"],
+                                                   audio_cfg)
+        aligns = out["alignments"]
+        if shard is not None:
+            wavs, aligns = shard.all_gather(wavs), shard.all_gather(aligns)
+        return wavs, aligns
+
+    return fn
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card: raise when CUDA is absent instead of
     falling back to the CPU; the CPU runs only when asked for."""

@@ -9,7 +9,16 @@
 Runs on the card; ``--device cpu`` runs on the CPU instead.  ``--prewarm``
 captures the train step as one CUDA graph per bucket shape before the
 first step.  ``--preset tpu`` and ``--scan_unroll`` are XLA settings and
-are refused, as is ``--distributed`` (multi-GPU is not ported yet).
+are refused.
+
+``--distributed`` joins the process group of a ``torchrun`` launch (one
+process per card, NCCL; gloo with ``--device cpu``) and trains data-
+parallel over the ``(data, model)`` grid of ``config.mesh``: each rank
+feeds ``--batch_size`` rows, so the global batch is that times the ranks.
+Every rank's batch then pads to the corpus maxima (one shape per step):
+
+    torchrun --nproc_per_node=2 -m tacotron_tpu_torch.train --distributed \
+        --data_paths=spk1/data,spk2/data
 """
 
 from __future__ import annotations
@@ -108,7 +117,10 @@ def main(argv=None) -> None:
     parser.add_argument("--scan_unroll", default=None,
                         help="refused: an XLA unroll setting")
     parser.add_argument("--distributed", action="store_true",
-                        help="refused: multi-GPU training is not ported yet")
+                        help="join the torchrun process group (RANK, "
+                             "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                             "MASTER_PORT) and train data-parallel; each "
+                             "rank pads its batches to the corpus maxima")
     args = parser.parse_args(argv)
 
     if args.preset is not None:
@@ -118,27 +130,62 @@ def main(argv=None) -> None:
     if args.scan_unroll is not None:
         parser.error("--scan_unroll sets the unroll of XLA scans; the port's "
                      "loops are eager PyTorch and take no unroll")
-    if args.distributed:
-        parser.error("--distributed: multi-GPU training is not ported yet")
+    if args.distributed and "WORLD_SIZE" not in os.environ:
+        parser.error("--distributed joins the process group of a torchrun "
+                     "launch (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                     "MASTER_PORT); this process has no such environment")
 
-    device = resolve_device(args.device)
+    plan = None
+    if args.distributed:
+        from ..parallel import (distributed_initialize, make_mesh,
+                                runtime_info)
+        from ..parallel.distributed import local_device
+        device = resolve_device(local_device(args.device))
+        distributed_initialize(device=device)
+        print(f"[*] distributed: {runtime_info()}", flush=True)
+    else:
+        device = resolve_device(args.device)
     data_paths = [p for p in args.data_paths.split(",") if p]
     config = build_config(args, data_paths)
-    run_dir = args.load_path or prepare_dirs(args.log_dir, data_paths)
-    train(run_dir, data_paths, config,
-          num_steps=args.num_steps,
-          initialize_path=args.initialize_path,
-          seed=args.seed,
-          test_dump_dir=os.path.join(run_dir, "samples"),
-          profile_dir=(os.path.join(run_dir, "profile")
-                       if args.profile else None),
-          webhook_url=args.webhook_url,
-          skip_path_filter=args.skip_path_filter,
-          blacklists=[b for b in args.blacklists.split(",") if b],
-          prewarm=args.prewarm,
-          sync_every=args.sync_every,
-          prefetch_depth=args.prefetch_depth,
-          device=device)
+    try:
+        if args.distributed:
+            plan = make_mesh(config.mesh)
+            if plan.data_size > 1:
+                config = config.replace(data=dataclasses.replace(
+                    config.data, pad_to_corpus_max=True))
+        run_dir = args.load_path or _shared_run_dir(args.log_dir,
+                                                    data_paths, plan)
+        train(run_dir, data_paths, config,
+              num_steps=args.num_steps,
+              initialize_path=args.initialize_path,
+              seed=args.seed,
+              test_dump_dir=os.path.join(run_dir, "samples"),
+              profile_dir=(os.path.join(run_dir, "profile")
+                           if args.profile else None),
+              webhook_url=args.webhook_url,
+              skip_path_filter=args.skip_path_filter,
+              blacklists=[b for b in args.blacklists.split(",") if b],
+              prewarm=args.prewarm,
+              sync_every=args.sync_every,
+              prefetch_depth=args.prefetch_depth,
+              device=device, plan=plan)
+    finally:
+        if args.distributed:
+            from ..parallel.distributed import shutdown
+            shutdown()
+
+
+def _shared_run_dir(log_root: str, data_paths, plan) -> str:
+    """A new run dir, named by rank 0 (its timestamp) and sent to every
+    rank of the grid; only rank 0 creates it."""
+    if plan is None or plan.mesh_group is None:
+        return prepare_dirs(log_root, data_paths)
+    import torch.distributed as dist
+    name = [prepare_dirs(log_root, data_paths)
+            if plan.rank == plan.grid[0][0] else None]
+    dist.broadcast_object_list(name, src=plan.grid[0][0],
+                               group=plan.host_group or plan.mesh_group)
+    return name[0]
 
 
 if __name__ == "__main__":

@@ -10,6 +10,13 @@ count ``round_up(max(target_lengths) + 1, r)`` (the reference pads each
 batch to exactly that), so frames that exist only because the feeder pads
 to a static bucket neither dilute the loss nor count in its denominator.
 That count stays a device tensor: no host sync.
+
+Under data parallelism (a ``DataShard`` passed as ``shard``) each rank
+holds its rows of the global batch, and the denominators are the global
+batch's: ``ref_len`` from the group's largest ``target_lengths``, the row
+count ``local rows * shard.size``, the guided prior's step count summed
+over the group.  A rank's loss is then its rows' numerator over the global
+denominator, so the ranks' losses (and gradients) sum to the JAX step's.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ def tacotron_loss(mel_outputs: torch.Tensor, linear_outputs: torch.Tensor,
                   loss_coeff: Optional[torch.Tensor], train_config,
                   audio_config,
                   target_lengths: Optional[torch.Tensor] = None,
-                  reduction_factor: int = 1) -> Dict[str, torch.Tensor]:
+                  reduction_factor: int = 1,
+                  shard=None) -> Dict[str, torch.Tensor]:
     """Returns ``loss`` (optimized), ``mel_loss``, ``linear_loss`` and
     ``loss_without_coeff`` (reported), as scalar tensors."""
     dtype = mel_outputs.dtype
@@ -39,7 +47,10 @@ def tacotron_loss(mel_outputs: torch.Tensor, linear_outputs: torch.Tensor,
     n_frames_padded = mel_targets.shape[1]
     if target_lengths is not None:
         r = max(1, int(reduction_factor))
-        ref_len = torch.max(target_lengths) + 1
+        ref_len = torch.max(target_lengths)
+        if shard is not None:
+            ref_len = shard.max(ref_len)
+        ref_len = ref_len + 1
         ref_len = torch.clamp((ref_len + r - 1) // r * r,
                               max=n_frames_padded)
         frames = torch.arange(n_frames_padded, device=mel_l1.device)
@@ -48,7 +59,7 @@ def tacotron_loss(mel_outputs: torch.Tensor, linear_outputs: torch.Tensor,
     else:
         frame_mask = None
         denom_frames = float(n_frames_padded)
-    batch = mel_l1.shape[0]
+    batch = mel_l1.shape[0] * (1 if shard is None else shard.size)
 
     def _mean(x: torch.Tensor) -> torch.Tensor:
         """Mean over the reference-equivalent region [N, ref_len, D]."""
@@ -76,7 +87,7 @@ def guided_attention_loss(alignments: torch.Tensor,
                           input_lengths: torch.Tensor,
                           target_lengths: Optional[torch.Tensor],
                           reduction_factor: int,
-                          sigma: float = 0.2) -> torch.Tensor:
+                          sigma: float = 0.2, shard=None) -> torch.Tensor:
     """Soft-diagonal attention prior (DC-TTS eq. 3) with a mass anchor.
 
     ``alignments`` [N, T_in, T_dec].  Returns the off-diagonal attention
@@ -108,7 +119,10 @@ def guided_attention_loss(alignments: torch.Tensor,
             & (t < dec_steps[:, None, None])).to(dtype)
     penalty = alignments * weight.to(dtype) * mask
     step_mask = (t[:, 0, :] < dec_steps[:, None]).to(dtype)
-    n_steps = torch.clamp(torch.sum(step_mask), min=1.0)
+    n_steps = torch.sum(step_mask)
+    if shard is not None:
+        n_steps = shard.sum(n_steps)
+    n_steps = torch.clamp(n_steps, min=1.0)
     diag = torch.sum(penalty) / n_steps
 
     mass = torch.sum(alignments * mask, dim=1)                 # [N, T_dec]

@@ -24,7 +24,11 @@ it measures:
 - the same steps on the same batches replayed as CUDA graphs, one per
   batch shape (``TrainStep.prewarm``): ``replay`` holds their wall time,
   target frames per second and peak memory, ``replay_traced`` one trace,
-  and ``prewarm_s`` the capture's time.
+  and ``prewarm_s`` the capture's time;
+- ``roofline``: the matmul FLOPs of each timed step at its batch's padded
+  shape (``train/roofline.py``) and the model FLOP utilization of the eager
+  and the replayed steps against the H100's float32 peak (median over the
+  steps).
 
 Prints one JSON object and writes it to ``--out``.  Needs a CUDA card.
 """
@@ -46,6 +50,7 @@ from ..data.feeder import DataFeeder
 from ..data.synthetic import write_synthetic_corpus
 from ..synth.profile import TraceWindow
 from .optim import Optimizer
+from .roofline import H100_FP32_PEAK_TFLOPS, forward_flops, mfu
 from .state import create_train_state
 from .step import batch_to_device, forward_loss, make_train_step
 
@@ -91,6 +96,26 @@ def time_train_steps(state, step_fn, batches, seed: int, n: int) -> dict:
                 f / t for f, t in zip(frames, times)),
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
             "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30}
+
+
+def step_flops(config, batch) -> float:
+    """The roofline's matmul FLOPs of one train step (forward and backward)
+    at ``batch``'s padded shape."""
+    n, t_in = batch.inputs.shape
+    t_out = (batch.mel_targets.shape[1] if batch.mel_targets is not None
+             else batch.waveforms.shape[1] // config.audio.hop_length + 1)
+    return 3.0 * forward_flops(config, n, t_in, t_out)["total"]
+
+
+def roofline(config, batches, *timings) -> dict:
+    """FLOPs per step of ``batches`` and, for each timing of
+    :func:`time_train_steps` on them, the median MFU (%) against the
+    H100's float32 peak."""
+    flops = [step_flops(config, b) for b in batches]
+    return {"total_flops": flops, "peak_tflops": H100_FP32_PEAK_TFLOPS,
+            "mfu_pct": [statistics.median(
+                mfu(f, t) for f, t in zip(flops, timing["step_s"]))
+                for timing in timings]}
 
 
 def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
@@ -187,6 +212,8 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
         **steps, "step_traced": whole,
         "graphs": n_graphs, "prewarm_s": prewarm_s, "replay": replay,
         "replay_traced": replay_traced,
+        # [eager, replayed] median MFU over the same timed batches
+        "roofline": roofline(cfg, host[1:], steps, replay),
     }
 
 

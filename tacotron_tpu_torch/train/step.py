@@ -7,6 +7,17 @@ clip -> Adam -> schedule update of ``train/optim.py``.  Its metrics are
 JAX's keys, kept as device tensors (``diverged`` a device bool) so the loop
 never waits on the card; the driver fetches them in batches.  The step can
 be captured as one CUDA graph per batch shape (:meth:`TrainStep.prewarm`).
+
+Under a mesh plan (``parallel/mesh.py``) the step is the data-parallel form
+of the JAX step, which is one SPMD program over the global batch: each
+rank runs its rows with global BatchNorm statistics, dropout masks and loss
+denominators (``forward_loss`` with the plan's ``DataShard``), so the sum of
+the ranks' gradients is the JAX gradient.  After ``backward`` the gradients
+and the loss metrics go through one all-reduce (SUM) of one flat buffer
+over the data group; the clip and Adam follow on every rank alike, so the
+replicas stay bit-equal and the metrics are the global ones.
+``DistributedDataParallel`` would average per-rank means instead, and
+per-rank BatchNorm statistics would give another model.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ import numpy as np
 import torch
 
 from ..dsp.chip import features_from_waveform
+from ..parallel.collectives import flat_all_reduce
 from ..utils.graphs import GraphSet, Graphed, arg_key
 from .losses import guided_attention_loss, tacotron_loss
 from .optim import Optimizer, global_norm
@@ -71,24 +83,32 @@ def dropout_seed(seed: int, step: int) -> int:
 
 def forward_loss(model, config, batch: Batch,
                  generator: Optional[torch.Generator] = None,
-                 guided_weight: Optional[torch.Tensor] = None
+                 guided_weight: Optional[torch.Tensor] = None,
+                 shard=None
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Teacher-forced forward (in the model's current mode) and the losses,
     with the ``attention_mass`` telemetry and, when the config turns it on,
     the guided-attention prior (``guided_weight`` overrides the config's
-    constant weight).  Returns (losses, model outputs)."""
+    constant weight).  Returns (losses, model outputs).
+
+    With a ``shard`` (``parallel/collectives.py::DataShard``) the batch is
+    this rank's rows of the global batch, and every loss (and the
+    ``attention_mass``) is this rank's numerator over the global
+    denominator: their sums over the data group are the global values."""
     if config.train.on_device_features and batch.waveforms is not None:
         wav = batch.waveforms.to(torch.float32) / 32767.0
         linear_t, mel_t = features_from_waveform(wav, config.audio)
         batch = batch._replace(mel_targets=mel_t, linear_targets=linear_t)
     speaker = batch.speaker_id if config.model.num_speakers > 1 else None
     out = model(batch.inputs, batch.input_lengths, speaker_id=speaker,
-                mel_targets=batch.mel_targets, dropout_generator=generator)
+                mel_targets=batch.mel_targets, dropout_generator=generator,
+                data_shard=shard)
     losses = tacotron_loss(out["mel_outputs"], out["linear_outputs"],
                            batch.mel_targets, batch.linear_targets,
                            batch.loss_coeff, config.train, config.audio,
                            target_lengths=batch.target_lengths,
-                           reduction_factor=config.model.reduction_factor)
+                           reduction_factor=config.model.reduction_factor,
+                           shard=shard)
 
     # attention health: mean in-bounds attention mass per true decode step
     # (the monotonic attention leaks mass past the last token as alignment
@@ -110,13 +130,14 @@ def forward_loss(model, config, batch: Batch,
         in_bounds = (align.to(torch.float32) * tok_mask[:, :, None]
                      * step_mask[:, None, :])
         mass = in_bounds.sum(dim=1).sum(dim=1) / dec_steps
-        losses["attention_mass"] = mass.mean()
+        losses["attention_mass"] = (mass.mean() if shard is None
+                                    else mass.mean() / shard.size)
 
     if config.train.guided_attention_weight > 0.0:
         attn = guided_attention_loss(
             out["alignments"], batch.input_lengths, batch.target_lengths,
             config.model.reduction_factor,
-            sigma=config.train.guided_attention_sigma)
+            sigma=config.train.guided_attention_sigma, shard=shard)
         if guided_weight is None:
             guided_weight = config.train.guided_attention_weight
         losses["attention_loss"] = attn
@@ -153,10 +174,21 @@ class TrainStep:
     is then copied into its static buffers and replayed, any other runs
     eagerly.  The step's metrics are then the graph's static outputs, which
     the next step overwrites: the caller copies them out first (the driver
-    stacks them at once)."""
+    stacks them at once).
 
-    def __init__(self, config, randomly_initialized: bool = True):
+    Under a ``plan`` with a process group (see the module docstring) every
+    call first checks over the host group that the data group's batches
+    have one shape (a mismatch raises instead of hanging in a
+    collective).  The gradient all-reduce sits inside the captured step, so
+    a replay runs it; capturing it needs NCCL (gloo's collectives are host
+    calls a graph cannot hold), and :meth:`prewarm` refuses other
+    backends."""
+
+    def __init__(self, config, randomly_initialized: bool = True,
+                 plan=None):
         self.config = config
+        self.plan = plan
+        self.shard = None if plan is None else plan.shard
         self.optimizer = Optimizer(config.train, randomly_initialized)
         self._slots: Optional[Tuple[torch.Tensor, torch.Generator]] = None
         self._graphs: Dict[Tuple, Graphed] = {}
@@ -179,12 +211,22 @@ class TrainStep:
         model.train()
         gw = guided_weight_at(config, step_t)
 
-        losses, _ = forward_loss(model, config, batch, generator, gw)
+        shard = self.shard
+        losses, _ = forward_loss(model, config, batch, generator, gw, shard)
         for p in params:
             p.grad = None
         losses["loss"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if shard is not None:
+            # one collective: the gradients and the loss metrics, summed
+            keys = [k for k in ("loss", "mel_loss", "linear_loss",
+                                "loss_without_coeff", "attention_mass",
+                                "attention_loss") if k in losses]
+            *grads, sums = flat_all_reduce(
+                grads + [torch.stack([losses[k].detach() for k in keys])],
+                shard.group)
+            losses = dict(zip(keys, sums))
         grad_norm = self.optimizer.update(params, grads, state.opt)
         for p in params:
             p.grad = None
@@ -210,6 +252,7 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch: Batch,
                  seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        self._check(state, batch)
         step_t, generator = self._slots_on(state.parameters()[0].device)
         step_t.fill_(state.step)
         generator.manual_seed(dropout_seed(seed, state.step))
@@ -231,6 +274,12 @@ class TrainStep:
         snapshot first and restored in place.  No autograd graph of the
         state's parameters may be alive (see ``utils/graphs.py``).  Returns
         the number of shapes the step holds graphs for."""
+        if self.shard is not None and self.plan.backend != "nccl":
+            raise ValueError(
+                f"prewarm captures the step's gradient all-reduce into a "
+                f"CUDA graph, which needs the NCCL backend; this process "
+                f"group is {self.plan.backend!r} (run without prewarm)")
+        self._check(state, None)
         device = state.parameters()[0].device
         gc.collect()  # no graph may be freed inside a capture (utils/graphs)
         if self._graph_set is None:
@@ -254,25 +303,52 @@ class TrainStep:
         return len(self._graphs)
 
 
-def make_train_step(config, randomly_initialized: bool = True) -> TrainStep:
-    """The train step of ``config`` (:class:`TrainStep`)."""
-    return TrainStep(config, randomly_initialized)
+    def _check(self, state: TrainState, batch: Optional[Batch]) -> None:
+        """Under a plan: a model whose head is split over the model axis is
+        refused (the step keeps the state replicated, as the JAX step
+        does), and the data group's batches must have one shape."""
+        if self.shard is None:
+            return
+        from ..parallel.mesh import ColumnParallelLinear, batch_shapes_agree
+        if isinstance(state.model.linear_projection, ColumnParallelLinear):
+            raise ValueError(
+                "the train step keeps the state replicated, as the JAX step "
+                "does; a head split by shard_params(model_parallelism > 1) "
+                "is for the forward")
+        if batch is not None:
+            batch_shapes_agree(self.plan, batch)
 
 
-def make_eval_step(config):
+def make_train_step(config, plan=None,
+                    randomly_initialized: bool = True) -> TrainStep:
+    """The train step of ``config`` (:class:`TrainStep`); with a mesh
+    ``plan`` the data-parallel step over the plan's data group."""
+    return TrainStep(config, randomly_initialized, plan)
+
+
+def make_eval_step(config, plan=None):
     """Teacher-forced eval: losses only, in eval mode (running statistics,
     no dropout), no state change.  Like the JAX eval step it applies the
-    config's constant guided-attention weight, not the annealed one."""
+    config's constant guided-attention weight, not the annealed one.  With
+    a mesh ``plan`` the losses are the global batch's (one all-reduce)."""
+    shard = None if plan is None else plan.shard
+    keys = ("loss", "mel_loss", "linear_loss", "loss_without_coeff")
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        if shard is not None:
+            from ..parallel.mesh import batch_shapes_agree
+            batch_shapes_agree(plan, batch)
         model = state.model
         model.eval()
         try:
-            losses, _ = forward_loss(model, config, batch)
+            losses, _ = forward_loss(model, config, batch, shard=shard)
         finally:
             model.train()
-        return {k: losses[k] for k in ("loss", "mel_loss", "linear_loss",
-                                       "loss_without_coeff")}
+        values = [losses[k] for k in keys]
+        if shard is not None:
+            values = list(flat_all_reduce([torch.stack(values)],
+                                          shard.group)[0])
+        return dict(zip(keys, values))
 
     return eval_fn

@@ -391,7 +391,12 @@ def test_train_prewarm_logs_and_keeps_state(corpus, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("flag", [["--preset", "tpu"],
                                   ["--scan_unroll", "8"], ["--distributed"]])
-def test_cli_refuses_xla_and_multi_gpu_flags(corpus, tmp_path, flag):
+def test_cli_refuses_xla_and_multi_gpu_flags(corpus, tmp_path, flag,
+                                             monkeypatch):
+    # --distributed trains under torchrun (tests/test_torch_parallel.py);
+    # without torchrun's environment it is refused
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
     from tacotron_tpu_torch.train.__main__ import main
 
     with pytest.raises(SystemExit):
