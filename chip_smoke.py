@@ -110,7 +110,34 @@
    the data-parallel step timed eagerly and replayed on the same 4 batches,
    the collectives a step calls and a capture records, one traced replay
    (its NCCL kernels), the roofline MFU; a ``[parallel]`` line.
-10. Prints the kernels line, the card line, and last the result line
+10. The corpus chain (``tools/``, ``data/builder.py``) into a trained voice
+   and the speaker eval on the card, at full width: (a) one long 24 kHz
+   recording per speaker, five tone-band utterances between silences of
+   0.5-1 s written from a seed, split by ``split_on_silence`` into one clip
+   per utterance; (b) ``transcribe_batch`` with a seeded recognizer (each
+   clip's sentence with one syllable changed; the fifth clip's change
+   makes it tie between its sentence and a twin in the script), then
+   ``align_batch``: every clip aligned to its own sentence, the tie kept
+   as the JAX one-candidate list; (c) ``build_from_path`` with 2 spawned
+   workers (CUDA up in this process, under a deadline) and with 1: equal
+   ``BuildStats``, every array byte-equal, the utterances the
+   ``ignore_recognition_level`` policy keeps (the tie is skipped), and
+   ``dataset_totals`` over the clips; (d) ``train()`` for 5 steps on the
+   built corpus, with a sample dump (the PNG skipped and logged where
+   matplotlib is absent), then 4 more steps timed alone (the median step
+   time); (e) ``evaluate_speakers`` on ``Synthesizer.load`` of that run for
+   both speakers, at 50 steps (K1) and at the default budget on two long
+   texts (K2 where ``fused_supported`` rejects the length), the launch
+   counters zeroed before each and held to the counts the iteration count
+   and the engine decision give, the kernel that ran held against its
+   plain version at the shapes the call gave it (each vocoder chunk's
+   padded batch x its frames), the waveforms checked at the exact length
+   of their frame ends before the dB trim, and the report holding the JAX
+   report's keys; (f) ``python -m
+   tacotron_tpu_torch.tools.speaker_eval`` as a subprocess on the card.  A
+   ``[corpus]`` line sums it up; (e)'s launches are the kernels'
+   ``launches_corpus``.
+11. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -118,6 +145,7 @@ Any failure raises, exits nonzero and prints no result line.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import statistics
 import subprocess
@@ -461,6 +489,43 @@ def gru_inputs(dev, rng, T, N, D, H, lengths=None):
     return x, h0, wg, bg, wc, bc, mask
 
 
+def check_k2_at(dev, rng, cfg, B: int, T: int, ns=None) -> float:
+    """K2 against its plain version on random frames [B, T, n_fft] into
+    ``ns`` samples (default ``(T - 1) * hop``, the vocoder's); the max abs
+    error, at most 1e-5 (the same f32 products, summed in the same
+    order)."""
+    from tacotron_tpu_torch.ops.kernels import ola
+
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, T, cfg.n_fft)).astype(np.float32)).to(dev)
+    ns = (T - 1) * cfg.hop_length if ns is None else ns
+    err = float((ola.overlap_add_batched(frames, ns, cfg)
+                 - ola.overlap_add_reference(frames, ns, cfg)).abs().max())
+    vec = ola.ola_plan(cfg.n_fft, cfg.hop_length, ns).vec
+    require(err <= 1e-5, f"K2 at B={B} T={T} n_fft={cfg.n_fft} hop="
+            f"{cfg.hop_length} samples={ns} (vec {vec}): {err}")
+    return err
+
+
+def check_k1_at(dev, rng, cfg, B: int, T: int) -> float:
+    """One K1 iteration against its plain version on random magnitudes of
+    B utterances x T frames (the rows past T zero, as the vocoder pads
+    them); the max error over the output's peak, at most 2e-3 (as in
+    :func:`check_k1`)."""
+    from tacotron_tpu_torch.ops.kernels import gl_fused
+
+    mag = torch.from_numpy(rng.random(
+        (B, gl_fused.frame_rows(T), cfg.num_freq)).astype(np.float32)).to(dev)
+    mag[:, T:] = 0.0
+    mag_e_s, mag_o_s = gl_fused.prepare_magnitudes(mag, cfg.n_fft)
+    sig = gl_fused.initial_signal_blocks(mag_e_s, mag_o_s, T, cfg)
+    got = gl_fused.gl_iteration(sig, mag_e_s, mag_o_s, T, cfg)
+    want = gl_fused.gl_iteration_reference(sig, mag_e_s, mag_o_s, T, cfg)
+    rel = float((got - want).abs().max() / want.abs().max())
+    require(rel <= 2e-3, f"K1 at B={B} T={T} n_fft={cfg.n_fft}: {rel}")
+    return rel
+
+
 def check_edge_shapes(dev, rng) -> int:
     """Every kernel against its plain version at ragged shapes: frame
     counts and rows that leave partial tiles, stacks shorter than a frame's
@@ -472,7 +537,7 @@ def check_edge_shapes(dev, rng) -> int:
     H = 512 and 513 on the two sides of ``cluster_plan``'s boundary between
     the cluster and the streaming route."""
     from tacotron_tpu_torch.config import AudioConfig
-    from tacotron_tpu_torch.ops.kernels import gl_fused, griffin_lim, gru, ola
+    from tacotron_tpu_torch.ops.kernels import griffin_lim, gru
 
     small = AudioConfig(num_freq=129, sample_rate=16000, frame_shift_ms=8,
                         frame_length_ms=16)
@@ -484,27 +549,10 @@ def check_edge_shapes(dev, rng) -> int:
                           (ref, 2, 37, None), (small, 2, 21, None),
                           (ref, 2, 1, ref.n_fft // 2), (ref, 2, 9, 2397),
                           (small, 1, 7, 766), (odd_hop, 2, 21, None)):
-        frames = torch.from_numpy(rng.standard_normal(
-            (B, T, cfg.n_fft)).astype(np.float32)).to(dev)
-        ns = (T - 1) * cfg.hop_length if ns is None else ns
-        got = ola.overlap_add_batched(frames, ns, cfg)
-        want = ola.overlap_add_reference(frames, ns, cfg)
-        err = float((got - want).abs().max())
-        vec = ola.ola_plan(cfg.n_fft, cfg.hop_length, ns).vec
-        require(err <= 1e-5, f"K2 at B={B} T={T} n_fft={cfg.n_fft} hop="
-                f"{cfg.hop_length} samples={ns} (vec {vec}): {err}")
+        check_k2_at(dev, rng, cfg, B, T, ns)
         n += 1
     for cfg, B, T in ((ref, 1, 7), (ref, 3, 130), (small, 2, 21)):
-        Ta = gl_fused.frame_rows(T)
-        mag = torch.from_numpy(rng.random(
-            (B, Ta, cfg.num_freq)).astype(np.float32)).to(dev)
-        mag[:, T:] = 0.0
-        mag_e_s, mag_o_s = gl_fused.prepare_magnitudes(mag, cfg.n_fft)
-        sig = gl_fused.initial_signal_blocks(mag_e_s, mag_o_s, T, cfg)
-        got = gl_fused.gl_iteration(sig, mag_e_s, mag_o_s, T, cfg)
-        want = gl_fused.gl_iteration_reference(sig, mag_e_s, mag_o_s, T, cfg)
-        rel = float((got - want).abs().max() / want.abs().max())
-        require(rel <= 2e-3, f"K1 at B={B} T={T} n_fft={cfg.n_fft}: {rel}")
+        check_k1_at(dev, rng, cfg, B, T)
         n += 1
     for rows, n_fft in ((70, 256), (130, 2048), (1, 2048), (33, 254)):
         frames = torch.from_numpy(rng.standard_normal(
@@ -539,7 +587,7 @@ def check_edge_shapes(dev, rng) -> int:
 
 def check_waveforms(res, hop: int, what: str) -> float:
     """Finite, non-silent, of the length the trimmed frame ends give.
-    Returns the seconds of audio."""
+    Returns the samples of audio."""
     n = 0
     for wav, end in zip(res["wavs"], res["ends"]):
         require(wav.ndim == 1 and wav.size > 0, f"{what}: empty waveform")
@@ -911,7 +959,11 @@ def train_phase(dev, tmp: str) -> dict:
     from tacotron_tpu_torch.ops.kernels.gl_fused import gl_iteration
     from tacotron_tpu_torch.synth import Synthesizer
     from tacotron_tpu_torch.train.checkpoint import checkpoint_steps
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.synth.synthesizer import trim_silence_db
     from tacotron_tpu_torch.train.driver import train
+    from tacotron_tpu_torch.train.profile import time_train_steps
+    from tacotron_tpu_torch.train.step import make_train_step
     from tacotron_tpu_torch.utils import read_metrics
 
     t_phase = time.perf_counter()
@@ -2088,6 +2140,406 @@ def parallel_phase(dev, main: dict, trained: dict, tmp: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ corpus
+
+#: phase 10's script, per speaker: five sentences of at least 50 tokens
+#: (the feeder's ``min_tokens``), each read by one utterance of that
+#: speaker's long recording; the script also holds a twin of the fifth,
+#: one syllable apart (``twin``)
+CORPUS_SCRIPT = {
+    0: ["바람이 부는 언덕 위에서 아이들이 연을 날리며 즐겁게 뛰어놀았다.",
+        "도서관 창가에 앉아 오래된 소설책을 천천히 읽어 내려갔다.",
+        "시장 골목에는 따뜻한 호떡과 어묵을 파는 가게가 줄지어 있었다.",
+        "기차는 새벽 안개를 가르며 남쪽 바닷가 마을로 달려갔다.",
+        "우리는 주말마다 공원 호숫가를 따라 자전거를 타곤 했다."],
+    1: ["첫눈이 내리던 날 할머니께서 손수 뜨개질한 목도리를 주셨다.",
+        "연구실의 불빛은 자정이 넘도록 꺼지지 않고 환하게 빛났다.",
+        "작은 카페 구석에서 피아노 연주가 잔잔하게 흘러나오고 있었다.",
+        "산 정상에 오르자 구름 사이로 붉은 해가 천천히 떠올랐다.",
+        "그녀는 편지 마지막 줄에 다시 만나자는 약속을 적어 두었다."],
+}
+#: utterance k of a recording lasts 3.4 + 0.3 k seconds: distinct enough
+#: for the fake recognizer to tell the clips apart by length
+UTTERANCE_S = [3.4 + 0.3 * k for k in range(5)]
+#: the position of the syllable in which the fifth sentence and its twin
+#: differ
+TWIN_AT = 12
+
+#: the JAX report's keys (``tacotron_tpu/tools/speaker_eval.py``)
+REPORT_KEYS = {
+    "utterance": {"text", "num_tokens", "attention", "audio"},
+    "attention": {"ok", "gate", "ok_sharpness", "ok_soft_monotonic",
+                  "coverage", "focus", "monotonicity", "path_coverage"},
+    "audio": {"duration_s", "rms", "peak", "silence_fraction",
+              "spectral_centroid_hz"},
+    "aggregate": {"num_utterances", "attention_ok_rate", "attention_gate",
+                  "attention_ok_rate_sharpness",
+                  "attention_ok_rate_soft_monotonic", "mean_coverage",
+                  "mean_focus", "mean_monotonicity", "mean_path_coverage",
+                  "mean_duration_s", "mean_rms", "mean_silence_fraction",
+                  "mean_spectral_centroid_hz", "mean_seconds_per_token"},
+    "cross_speaker": {"num_speakers", "attention_gate",
+                      "worst_attention_ok_rate",
+                      "worst_attention_ok_rate_sharpness",
+                      "worst_attention_ok_rate_soft_monotonic",
+                      "worst_path_coverage", "rms_spread_ratio",
+                      "seconds_per_token_spread_ratio"},
+}
+#: launches of K1 (``gl_iteration``: its four kernels) per Griffin-Lim
+#: iteration
+K1_PER_ITERATION = 4
+
+
+def twin(sentence: str) -> str:
+    """The fifth sentence's twin in the script: one syllable apart."""
+    return (sentence[:TWIN_AT] + chr(ord(sentence[TWIN_AT]) + 1)
+            + sentence[TWIN_AT + 1:])
+
+
+def write_recording(path: str, spk: int, audio_cfg, rng) -> None:
+    """One speaker's long-form recording: the utterances of
+    ``UTTERANCE_S`` as tone bands (three sines in the speaker's band under
+    an envelope that never falls below 0.2) between silences of 0.5-1 s."""
+    from tacotron_tpu_torch.dsp import host as dsp_host
+
+    sr = audio_cfg.sample_rate
+    lo, hi = ((150.0, 400.0), (400.0, 900.0))[spk]
+    parts = [np.zeros(int(sr * rng.uniform(0.5, 1.0)), np.float32)]
+    for seconds in UTTERANCE_S:
+        t = np.arange(int(sr * seconds)) / sr
+        env = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1.0, 3.0) * t)
+        utt = env * sum(rng.uniform(0.1, 0.25)
+                        * np.sin(2 * np.pi * rng.uniform(lo, hi) * t)
+                        for _ in range(3))
+        parts += [utt.astype(np.float32),
+                  np.zeros(int(sr * rng.uniform(0.5, 1.0)), np.float32)]
+    dsp_host.save_audio(np.concatenate(parts), path, audio_cfg)
+
+
+def fake_recognizer(sentences, rng, calls: list):
+    """A seeded ``recognize_fn``: the clip is told by its length (the
+    nearest of ``UTTERANCE_S``); it returns that clip's sentence with one
+    syllable changed at a seeded position, and for the fifth clip the
+    syllable in which the sentence and its twin differ, to a third one
+    (a tie between the two: the low-confidence form)."""
+    def recognize(audio_16k, language):
+        k = int(np.argmin([abs(len(audio_16k) / 16000 - s)
+                           for s in UTTERANCE_S]))
+        text = sentences[k]
+        if k == len(sentences) - 1:
+            at, new = TWIN_AT, chr(ord(text[TWIN_AT]) + 2)
+        else:
+            syllables = [i for i, c in enumerate(text)
+                         if "가" <= c <= "힣"]
+            at = syllables[int(rng.integers(len(syllables)))]
+            new = text[at]
+            while new == text[at]:
+                new = chr(0xAC00 + int(rng.integers(11172)))
+        calls.append((k, language))
+        return text[:at] + new + text[at + 1:]
+    return recognize
+
+
+def npz_arrays(data_dir: str) -> dict:
+    """{file name: {key: array}} of a directory of ``.npz`` files."""
+    import os
+
+    out = {}
+    for name in sorted(os.listdir(data_dir)):
+        with np.load(os.path.join(data_dir, name)) as d:
+            out[name] = {k: d[k] for k in d.files}
+    return out
+
+
+def check_report(report: dict, speakers, n_texts: int, what: str) -> None:
+    """Every key of the JAX report, per speaker and utterance, and JSON."""
+    require(set(report) == {"speakers", "cross_speaker"},
+            f"{what}: report keys {sorted(report)}")
+    require(set(report["speakers"]) == {str(s) for s in speakers},
+            f"{what}: speakers {sorted(report['speakers'])}")
+    require(set(report["cross_speaker"]) == REPORT_KEYS["cross_speaker"],
+            f"{what}: cross-speaker keys {sorted(report['cross_speaker'])}")
+    for rec in report["speakers"].values():
+        require(set(rec["aggregate"]) == REPORT_KEYS["aggregate"],
+                f"{what}: aggregate keys {sorted(rec['aggregate'])}")
+        require(len(rec["utterances"]) == n_texts,
+                f"{what}: {len(rec['utterances'])} utterances")
+        for u in rec["utterances"]:
+            require(set(u) == REPORT_KEYS["utterance"]
+                    and set(u["attention"]) == REPORT_KEYS["attention"]
+                    and set(u["audio"]) == REPORT_KEYS["audio"],
+                    f"{what}: utterance keys {sorted(u)}")
+            require(all(np.isfinite(v) for v in u["audio"].values())
+                    and u["audio"]["duration_s"] > 0,
+                    f"{what}: acoustic stats {u['audio']}")
+    json.dumps(report)
+
+
+def corpus_phase(dev, tmp: str) -> dict:
+    """Phase 10 (a)-(f) of the module docstring, in ``tmp``.  Returns its
+    numbers."""
+    import dataclasses
+    import importlib.util
+    import os
+
+    from tacotron_tpu_torch.data.builder import (build_from_path,
+                                                 read_metadata,
+                                                 resolve_loss_coeffs)
+    from tacotron_tpu_torch.ops.kernels.gl_fused import fused_supported
+    from tacotron_tpu_torch.synth import Synthesizer
+    from tacotron_tpu_torch.text import text_to_sequence
+    from tacotron_tpu_torch.text.eval_sentences import EVAL_TEXTS
+    from tacotron_tpu_torch.tools.alignment import align_batch, similarity
+    from tacotron_tpu_torch.tools.asr import transcribe_batch
+    from tacotron_tpu_torch.tools.duration import (audio_duration,
+                                                   dataset_totals)
+    from tacotron_tpu_torch.tools.silence import split_on_silence
+    from tacotron_tpu_torch.tools.speaker_eval import evaluate_speakers
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.synth.synthesizer import trim_silence_db
+    from tacotron_tpu_torch.train.driver import train
+    from tacotron_tpu_torch.train.profile import time_train_steps
+    from tacotron_tpu_torch.train.step import make_train_step
+    from tacotron_tpu_torch.utils import read_metrics
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(10)
+    out = {}
+    cfg = train_config(decay_learning_rate_mode=1, test_interval=5,
+                       checkpoint_interval=5)
+    audio = cfg.audio
+    root = os.path.join(tmp, "corpus10")
+
+    # (a) one long recording per speaker, split on silence
+    clips, scripts = {}, {}
+    for spk, sentences in CORPUS_SCRIPT.items():
+        d = os.path.join(root, f"spk{spk}")
+        os.makedirs(d)
+        scripts[spk] = os.path.join(d, "script.txt")
+        with open(scripts[spk], "w", encoding="utf-8") as fh:
+            fh.write("\n".join(sentences + [twin(sentences[-1])]) + "\n")
+        write_recording(os.path.join(d, "long.wav"), spk, audio, rng)
+        clips[spk] = split_on_silence(os.path.join(d, "long.wav"), audio)
+        require(len(clips[spk]) == len(sentences),
+                f"(a) speaker {spk}: {len(clips[spk])} clips for "
+                f"{len(sentences)} utterances")
+    out["clips"] = sum(len(v) for v in clips.values())
+    log(f"[corpus] (a) split_on_silence: {out['clips']} clips from 2 "
+        f"recordings of {len(UTTERANCE_S)} utterances")
+
+    # (b) ASR with a seeded fake recognizer, then alignment to the script
+    aligned = {}
+    for spk, sentences in CORPUS_SCRIPT.items():
+        d = os.path.dirname(scripts[spk])
+        calls = []
+        rec = transcribe_batch(os.path.join(d, "long.*.wav"),
+                               recognize_fn=fake_recognizer(sentences, rng,
+                                                            calls))
+        require(sorted(k for k, _ in calls) == list(range(len(sentences)))
+                and len(rec) == len(clips[spk]),
+                f"(b) speaker {spk}: recognized clips {calls}")
+        result = align_batch(os.path.join(d, "recognition.json"),
+                             scripts[spk])
+        with open(os.path.join(d, "alignment.json"), encoding="utf-8") as fh:
+            require(json.load(fh) == result,
+                    f"(b) speaker {spk}: alignment.json differs")
+        lines = sentences + [twin(sentences[-1])]
+        for path in clips[spk]:
+            k = int(np.argmin([abs(audio_duration(path) - s)
+                               for s in UTTERANCE_S]))
+            got = result[path]
+            if k < len(sentences) - 1:
+                require(got == sentences[k],
+                        f"(b) {path}: aligned to {got!r}, not "
+                        f"{sentences[k]!r}")
+            else:
+                # the tie: kept uncertain, as the ASR text alone
+                require(got == [rec[path]],
+                        f"(b) {path}: the tie aligned to {got!r}")
+                best = max(similarity(c, rec[path]) for c in lines)
+                require(similarity(sentences[k], rec[path]) == best,
+                        f"(b) {path}: its own sentence is not a best match")
+        aligned[spk] = result
+    log(f"[corpus] (b) transcribe_batch + align_batch: "
+        f"{sum(isinstance(v, str) for r in aligned.values() for v in r.values())}"
+        f" confident, "
+        f"{sum(isinstance(v, list) for r in aligned.values() for v in r.values())}"
+        f" uncertain (the twin ties)")
+
+    # (c) build the corpus in a spawned pool of 2 (CUDA is up in this
+    # process), then in-process; byte-equal arrays
+    require(torch.cuda.is_initialized(), "(c) CUDA is not initialised")
+    dirs, built, skipped, walls = [], 0, 0, {1: 0.0, 2: 0.0}
+    frames = []
+    for spk in CORPUS_SCRIPT:
+        meta = os.path.join(os.path.dirname(scripts[spk]), "alignment.json")
+        kept, _ = resolve_loss_coeffs(read_metadata(meta), cfg.train)
+        t0 = time.perf_counter()
+        # a hung pool ends the script with every thread's traceback
+        faulthandler.dump_traceback_later(180, exit=True)
+        stats2 = build_from_path(meta, cfg, "data", num_workers=2)
+        faulthandler.cancel_dump_traceback_later()
+        walls[2] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats1 = build_from_path(meta, cfg, "data1", num_workers=1)
+        walls[1] += time.perf_counter() - t0
+        require(dataclasses.asdict(stats2) == dataclasses.asdict(stats1),
+                f"(c) speaker {spk}: {stats2} vs {stats1}")
+        require(stats2.num_built == len(kept),
+                f"(c) speaker {spk}: built {stats2.num_built}, the policy "
+                f"keeps {len(kept)}")
+        a2 = npz_arrays(os.path.join(os.path.dirname(meta), "data"))
+        a1 = npz_arrays(os.path.join(os.path.dirname(meta), "data1"))
+        require(sorted(a2) == sorted(a1) and len(a2) == len(kept),
+                f"(c) speaker {spk}: files {sorted(a2)} vs {sorted(a1)}")
+        for name, arrays in a1.items():
+            for key, want in arrays.items():
+                got = a2[name][key]
+                require(got.dtype == want.dtype and got.shape == want.shape
+                        and got.tobytes() == want.tobytes(),
+                        f"(c) {name}/{key} differs between 2 workers and 1")
+        kept_s = sum(audio_duration(p) for p in kept)
+        built_s = sum(stats2.n_frames) * audio.hop_length / audio.sample_rate
+        require(abs(built_s - kept_s) <= len(kept) * audio.hop_length
+                / audio.sample_rate,
+                f"(c) speaker {spk}: {built_s} s built for {kept_s} s kept")
+        built += stats2.num_built
+        skipped += len(clips[spk]) - stats2.num_built
+        frames += stats2.n_frames
+        dirs.append(os.path.join(os.path.dirname(meta), "data"))
+    totals = dataset_totals([os.path.join(root, f"spk{s}", "long.*.wav")
+                             for s in CORPUS_SCRIPT])
+    clip_s = sum(s for _, s in totals.values())
+    require(sum(n for n, _ in totals.values()) == out["clips"]
+            and abs(clip_s - 2 * sum(UTTERANCE_S)) <= out["clips"] * 0.1,
+            f"(c) dataset_totals {totals}")
+    out.update(built=built, skipped=skipped, build_s=walls,
+               corpus_s=sum(frames) * audio.hop_length / audio.sample_rate,
+               clip_s=clip_s)
+    log(f"[corpus] (c) build_from_path: {built} built, {skipped} skipped by "
+        f"ignore_recognition_level {cfg.train.ignore_recognition_level}, "
+        f"2 workers {walls[2]:.2f} s, 1 worker {walls[1]:.2f} s, byte-equal;"
+        f" {out['corpus_s']:.2f} s of audio built, clips "
+        f"{clip_s:.2f} s (dataset_totals)")
+
+    # (d) train on it: the batch the corpus allows (half of the smaller
+    # speaker's utterances; the feeder holds a batch out per speaker)
+    batch = min(len(os.listdir(d)) for d in dirs) // 2
+    cfg_d = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  batch_size=batch))
+    run = os.path.join(tmp, "run_corpus")
+    samples = os.path.join(run, "samples")
+    state = train(run, dirs, cfg_d, num_steps=5, device=dev,
+                  test_dump_dir=samples)
+    recs = read_metrics(os.path.join(run, "metrics.jsonl"), "train")
+    require(state.step == 5 and [r["step"] for r in recs] == [1, 2, 3, 4, 5]
+            and all(np.isfinite(r["loss"]) for r in recs),
+            f"(d) train records {recs}")
+    names = sorted(os.listdir(samples))
+    require({"step000000005.wav", "step000000005_alignment.npy"}
+            <= set(names), f"(d) sample dumps {names}")
+    with open(os.path.join(run, "train.log"), encoding="utf-8") as fh:
+        skipped_png = "alignment PNG" in fh.read()
+    if importlib.util.find_spec("matplotlib") is None:
+        require(skipped_png and "step000000005.png" not in names,
+                "(d) no matplotlib, but no skipped PNG in train.log")
+    else:
+        require("step000000005.png" in names, f"(d) no PNG in {names}")
+    # the driver's sec_per_step is a running mean over its flushes; the
+    # step time is timed alone: one warm-up and 4 steps on from step 5
+    timing = time_train_steps(state, make_train_step(cfg_d),
+                              DataFeeder(dirs, cfg_d, seed=5).batches(), 1, 4)
+    out["step_s"] = timing["sec_per_step"]
+    log(f"[corpus] (d) train on the built corpus: 5 steps at batch {batch}"
+        f", losses {[round(r['loss'], 4) for r in recs]}; then 4 timed "
+        f"steps {[round(t, 4) for t in timing['step_s']]}, median "
+        f"{out['step_s']:.4f} s/step; sample dump {names} (PNG "
+        f"{'skipped and logged' if skipped_png else 'written'})")
+
+    # (e) the speaker eval on the card: 50 steps (K1), then the default
+    # budget on two long texts (K2 where fused_supported rejects it)
+    synth = Synthesizer(device=dev).load(run)
+    r = synth.config.model.reduction_factor
+    iters = synth.FAST_GRIFFIN_LIM_ITERS
+    results = []
+    inner = synth.synthesize
+
+    def capture(**kw):
+        # the waveforms are held at the exact lengths of their frame ends,
+        # then given the dB trim that synthesize applies by default
+        trim = kw.pop("librosa_trim", True)
+        res = inner(**kw, librosa_trim=False)
+        results.append(res)
+        return dict(res, wavs=[trim_silence_db(w) if trim else w
+                               for w in res["wavs"]])
+
+    synth.synthesize = capture
+    long_texts = sorted(EVAL_TEXTS, key=len)[-2:]
+    runs = {"steps50": dict(max_steps=50, texts=EVAL_TEXTS),
+            "default": dict(max_steps=None, texts=long_texts)}
+    out["eval"] = {}
+    for name, kw in runs.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        report = evaluate_speakers(synth, speakers=[0, 1], **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        res = results[-1]
+        n = 2 * len(kw["texts"])
+        seqs = [text_to_sequence(t, synth.cleaner_names(),
+                                 symbol_set=synth.config.data.symbol_set)
+                for t in kw["texts"]]
+        steps = synth._budget([len(s) for s in seqs], kw["max_steps"],
+                              32)[1]
+        fused = fused_supported(synth.config.audio, steps * r)
+        chunks = len(synth._chunks(n))
+        want = {"K1": K1_PER_ITERATION * iters * chunks if fused else 0,
+                "K2": 0 if fused else (iters + 1) * chunks, "K3": 0}
+        require(counts == want, f"(e) {name}: launches {counts}, derived "
+                                f"{want} ({steps} steps, fused {fused})")
+        check_waveforms(res, synth.config.audio.hop_length, f"(e) {name}")
+        check_report(report, [0, 1], len(kw["texts"]), f"(e) {name}")
+        # the kernel that ran, against its plain version at each shape the
+        # path gave it: a chunk's padded batch x steps * r frames
+        errs = {nb: (check_k1_at if fused else check_k2_at)(
+                    dev, rng, synth.config.audio, nb, steps * r)
+                for nb in sorted({nb for _, _, nb in synth._chunks(n)})}
+        out["eval"][name] = dict(wall_s=wall, launches=counts, steps=steps,
+                                 fused=fused, kernel_err=errs)
+        cross = report["cross_speaker"]
+        log(f"[corpus] (e) evaluate_speakers {name}: {n} utterances x "
+            f"{steps} steps ({steps * r} frames, fused {fused}) in "
+            f"{wall:.3f} s, launches {counts}; "
+            f"{'K1 rel' if fused else 'K2 abs'} error against its plain "
+            f"version at {steps * r} frames "
+            f"{', '.join(f'B={b} {e:.3e}' for b, e in errs.items())}; worst "
+            f"attention_ok {cross['worst_attention_ok_rate']:.2f}, rms "
+            f"spread {cross['rms_spread_ratio']:.3f}")
+    del synth.synthesize
+
+    # (f) the CLI as a user runs it: on the card, no --device
+    report_path = os.path.join(tmp, "speaker_report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tacotron_tpu_torch.tools.speaker_eval",
+         "--load_path", run, "--max_steps", "50", "--out", report_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    out["cli_s"] = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"(f) speaker_eval CLI exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    with open(report_path, encoding="utf-8") as fh:
+        cli_report = json.load(fh)
+    check_report(cli_report, [0, 1], len(EVAL_TEXTS), "(f)")
+    log(f"[corpus] (f) python -m tacotron_tpu_torch.tools.speaker_eval: "
+        f"exit 0 in {out['cli_s']:.1f} s, speakers "
+        f"{sorted(cli_report['speakers'])}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2146,6 +2598,7 @@ def main() -> int:
         graphs["train"] = train_graphs(dev, trained, tmp)
         graphs["wall_s"] = time.perf_counter() - t8
         par = parallel_phase(dev, main, trained, tmp)
+        corpus = corpus_phase(dev, tmp)
     for k, name in zip(kernels, ("K1", "K2", "K3")):
         k["launches_serving"] = {step: v[name]
                                  for step, v in serve["launches"].items()}
@@ -2193,6 +2646,23 @@ def main() -> int:
         f"{par['roofline']['mfu_pct'][1]:.3f} % of "
         f"{par['roofline']['peak_tflops']:.0f} TFLOP/s fp32; phase 9 wall "
         f"time {par['wall_s']:.1f} s on {card}")
+    ev = corpus["eval"]
+    log(f"[corpus] clips split {corpus['clips']}; utterances built "
+        f"{corpus['built']}, skipped {corpus['skipped']}; build wall 1 "
+        f"worker {corpus['build_s'][1]:.2f} s, 2 workers "
+        f"{corpus['build_s'][2]:.2f} s; built corpus "
+        f"{corpus['corpus_s']:.2f} s of audio; train median of 4 timed "
+        f"steps {corpus['step_s']:.4f} s/step; speaker eval 50 steps "
+        f"{ev['steps50']['wall_s']:.3f} s (K1 {ev['steps50']['launches']['K1']}"
+        f", K2 {ev['steps50']['launches']['K2']}), default budget "
+        f"({ev['default']['steps']} steps) {ev['default']['wall_s']:.3f} s "
+        f"(K1 {ev['default']['launches']['K1']}, K2 "
+        f"{ev['default']['launches']['K2']}); CLI {corpus['cli_s']:.1f} s; "
+        f"phase 10 wall time {corpus['wall_s']:.1f} s on {card}")
+    for k, name in zip(kernels, ("K1", "K2")):
+        # phase 10 (e): evaluate_speakers on the trained corpus voice
+        k["launches_corpus"] = {c: v["launches"][name]
+                                for c, v in ev.items()}
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")

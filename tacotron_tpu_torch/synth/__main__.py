@@ -81,13 +81,14 @@ def main(argv=None) -> None:
                   librosa_trim=not args.no_librosa_trim, vocode=args.vocode,
                   fast_vocoder=args.fast_vocoder)
     if args.long:
-        results = {"wavs": [], "alignments": []}
+        results = {"wavs": [], "alignments": [], "sequences": []}
         for text in args.text:
             out = synth.synthesize_long(text, speaker_id=args.speaker_id,
                                         robust=False, **kwargs)
             print(f"[*] split into {len(out['chunks'])} chunk(s)")
             results["wavs"].append(out["wav"])
             results["alignments"].append(None)
+            results["sequences"].append([])
     else:
         results = synth.synthesize(
             texts=args.text, speaker_ids=[args.speaker_id] * len(args.text),

@@ -46,6 +46,7 @@ from ..params import from_flax, init_random_, load_npz
 from ..text import text_to_sequence
 from ..text.symbols import EOS_ID, vocab_size_for
 from ..utils.graphs import GraphSet, Graphed
+from ..utils.plot import save_alignment_png
 
 # Decode-step bucket ladder for length-adaptive serving (multiples of 50 up
 # to the reference's 200-step decode cap).
@@ -432,6 +433,9 @@ class Synthesizer:
 
     # serving-batch chunk of the vocoder (the JAX package's value)
     VOCODER_MAX_BATCH = 16
+    # the fast vocoder's Griffin-Lim iterations and momentum (JAX's values)
+    FAST_GRIFFIN_LIM_ITERS = 30
+    FAST_GRIFFIN_LIM_MOMENTUM = 0.99
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -509,7 +513,8 @@ class Synthesizer:
         audio_cfg = self.config.audio
         if fast:
             audio_cfg = dataclasses.replace(
-                audio_cfg, griffin_lim_iters=30, griffin_lim_momentum=0.99)
+                audio_cfg, griffin_lim_iters=self.FAST_GRIFFIN_LIM_ITERS,
+                griffin_lim_momentum=self.FAST_GRIFFIN_LIM_MOMENTUM)
         r = self.config.model.reduction_factor
         out = self._forward(inputs, input_lengths, speaker_id, manual,
                             is_manual, max_steps)
@@ -982,16 +987,23 @@ class Synthesizer:
 
     def save_results(self, results: Dict, out_dir: str,
                      prefix: str = "synth") -> List[str]:
-        """Write each waveform as a peak-normalized 16-bit wav and each
-        alignment as ``.npy`` beside it."""
+        """Write each waveform as a peak-normalized 16-bit wav, and each
+        alignment as ``.npy`` and as a PNG heatmap beside it (the PNG needs
+        matplotlib; without it the first skip is logged and the rest of
+        the call writes wavs and ``.npy`` only)."""
         os.makedirs(out_dir, exist_ok=True)
         paths = []
         aligns = results["alignments"] or [None] * len(results["wavs"])
-        for i, (wav, align) in enumerate(zip(results["wavs"], aligns)):
+        plot = True
+        for i, (wav, align, seq) in enumerate(zip(
+                results["wavs"], aligns, results["sequences"])):
             wav_path = os.path.join(out_dir, f"{prefix}_{i}.wav")
             save_wav(wav, wav_path, self.config.audio.sample_rate)
             if align is not None:
                 np.save(wav_path[:-4] + "_alignment.npy", align)
+                plot = plot and save_alignment_png(
+                    align, wav_path[:-4] + ".png", token_ids=seq,
+                    input_length=len(seq))
             paths.append(wav_path)
         return paths
 

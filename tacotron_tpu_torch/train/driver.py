@@ -52,6 +52,7 @@ from ..synth.profile import TraceWindow
 from ..synth.synthesizer import resolve_device
 from ..utils import (MetricsLogger, ValueWindow, get_git_diff,
                      get_git_revision_hash, init_log, log)
+from ..utils.plot import save_alignment_png
 from .checkpoint import CheckpointManager, warm_start
 from .state import TrainState, create_train_state
 from .step import (Batch, batch_to_device, make_eval_step,
@@ -457,7 +458,9 @@ def dump_samples(state: TrainState, batch: Batch, config: Config,
                  step: int, out_dir: str) -> None:
     """The first test utterance teacher-forced in eval mode: its linear
     output vocoded on the host (``dsp/host.py`` Griffin-Lim) to
-    ``step<step>.wav``, its alignment to ``step<step>_alignment.npy``."""
+    ``step<step>.wav``, its alignment to ``step<step>_alignment.npy`` and
+    to the heatmap ``step<step>.png`` (logged as skipped where matplotlib
+    is not installed)."""
     from .step import forward_loss
     one = Batch(*(None if x is None else x[:1] for x in batch))
     model = state.model
@@ -474,3 +477,6 @@ def dump_samples(state: TrainState, batch: Batch, config: Config,
     dsp_host.save_audio(wav, stem + ".wav", config.audio)
     np.save(stem + "_alignment.npy",
             align[:int(one.input_lengths[0])])
+    save_alignment_png(align, stem + ".png", info=f"step {step}",
+                       token_ids=one.inputs[0].tolist(),
+                       input_length=int(one.input_lengths[0]))

@@ -145,7 +145,8 @@ def test_metrics_keys_and_run_dir(corpus, tmp_path, guided):
         assert os.path.isfile(os.path.join(run, name)), name
     assert any(n.startswith("events.out.tfevents") for n in os.listdir(run))
     samples = sorted(os.listdir(os.path.join(run, "samples")))
-    assert samples == ["step000000002.wav", "step000000002_alignment.npy"]
+    assert samples == ["step000000002.png", "step000000002.wav",
+                       "step000000002_alignment.npy"]
 
 
 def _final_state(run):
