@@ -137,7 +137,27 @@
    tacotron_tpu_torch.tools.speaker_eval`` as a subprocess on the card.  A
    ``[corpus]`` line sums it up; (e)'s launches are the kernels'
    ``launches_corpus``.
-11. Prints the kernels line, the card line, and last the result line
+11. bf16 compute (``ModelConfig.compute_dtype="bfloat16"``) at full width,
+   with phase 4's weights and phase 6's corpus: (a) a teacher-forced
+   forward on 4 utterances in bf16 on the card against float32 on the card
+   and against bf16 on the CPU (each deviation a share of the float32 peak;
+   the CPU tests' bounds, 3 % for mel and linear and 1e-2 for the
+   alignments); (b) phase 4's rungs (a) and (b) in bf16, eagerly (K1 120
+   launches at 50 steps, K2 61 at 200) and replayed after ``prewarm``
+   (bit-equal to eager, the same launches in the replay's trace), walls,
+   device busy time and idle share beside the float32 figures; (c) one
+   bf16 step at batch 4 on the card against the CPU (loss rel 1e-2,
+   gradient norm rel 2e-2), 30 bf16 steps at batch 16 (the loss falls),
+   eager and replayed steps on the same 4 batches (step time, target
+   frames/s, peak memory) beside phase 6's and 8's, and at NCCL world size
+   1 the data-parallel bf16 step equal to the plain one over 2 steps; (d)
+   ``python -m tacotron_tpu_torch.train --preset tpu --num_steps 3`` on a
+   corpus of phase 6's writer with 64 utterances a speaker (the preset's
+   batch of 32 is also each speaker's held-out test set): exit 0, its
+   ``config.json`` bf16 at batch 32.  A ``[bf16]``
+   line sums it up; (b)'s launches are the kernels' ``launches_bf16``.
+   There is no fallback: a bf16 failure fails the script.
+12. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -2540,6 +2560,335 @@ def corpus_phase(dev, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- bf16
+
+def bf16_config(cfg):
+    """``cfg`` computing in bfloat16."""
+    import dataclasses
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 compute_dtype="bfloat16"))
+
+
+#: the CPU tests' bounds of the bf16 model (tests/test_torch_bf16_model.py):
+#: mel and linear within 3 % of the float32 peak, alignments within 1e-2
+BF16_SHARE, BF16_ALIGN = 0.03, 1e-2
+#: and of the bf16 train step (tests/test_torch_bf16.py)
+BF16_LOSS_REL, BF16_GRAD_NORM_REL = 1e-2, 2e-2
+
+
+def bf16_forward(dev, main: dict, dirs) -> dict:
+    """(a) A teacher-forced full-width forward in eval mode on 4 utterances
+    of phase 6's corpus (120-160 frames), with phase 4's weights: bf16 on
+    the card against float32 on the card and against bf16 on the CPU.
+    Each deviation is a share of the float32 output's peak."""
+    import dataclasses
+
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.synth import Synthesizer
+
+    cfg = main["synth"].config
+    cfg_bf = bf16_config(cfg)
+    feed = train_config()
+    feed = feed.replace(data=dataclasses.replace(feed.data, min_iters=30,
+                                                 max_iters=41))
+    host = next(DataFeeder(dirs, feed, batch_size=4, n_test=0,
+                           seed=3).batches())
+    models = {"f32": main["synth"].model,
+              "bf16": Synthesizer(device=dev).init_random(cfg_bf, 0).model,
+              "cpu": Synthesizer(device="cpu").init_random(cfg_bf, 0).model}
+    outs = {}
+    for name, model in models.items():
+        d = next(model.parameters()).device
+        with torch.inference_mode():
+            out = model(torch.from_numpy(host.inputs).long().to(d),
+                        torch.from_numpy(host.input_lengths).to(d),
+                        speaker_id=torch.from_numpy(host.speaker_id).long()
+                        .to(d),
+                        mel_targets=torch.from_numpy(host.mel_targets).to(d))
+        require(all(v.dtype == torch.float32 for v in out.values()),
+                f"(a) {name}: outputs {[v.dtype for v in out.values()]}")
+        outs[name] = {k: v.cpu().numpy() for k, v in out.items()}
+    require(models["bf16"].compute_dtype == torch.bfloat16
+            and all(p.dtype == torch.float32
+                    for p in models["bf16"].parameters()),
+            "(a) the bf16 model's parameters are not float32")
+    dev_ = {}
+    for pair in (("bf16", "cpu"), ("bf16", "f32")):
+        for key in ("mel_outputs", "linear_outputs", "alignments"):
+            a, b = outs[pair[0]][key], outs[pair[1]][key]
+            require(np.isfinite(a).all(), f"(a) {pair[0]} {key} not finite")
+            err = float(np.abs(a - b).max())
+            if key == "alignments":
+                share, ok = err, err <= BF16_ALIGN
+            else:
+                share = err / float(np.abs(outs["f32"][key]).max())
+                ok = share <= BF16_SHARE
+            dev_[f"{pair[0]}_vs_{pair[1]}/{key}"] = share
+            require(ok, f"(a) {pair[0]} against {pair[1]}, {key}: {share}")
+    log(f"[bf16] (a) teacher-forced forward, 4 x "
+        f"{host.mel_targets.shape[1]} frames, phase 4's weights: card bf16 "
+        f"against CPU bf16: mel {dev_['bf16_vs_cpu/mel_outputs']:.3e}, "
+        f"linear {dev_['bf16_vs_cpu/linear_outputs']:.3e} of the peak, "
+        f"alignments {dev_['bf16_vs_cpu/alignments']:.3e}; card bf16 "
+        f"against card f32: mel {dev_['bf16_vs_f32/mel_outputs']:.3e}, "
+        f"linear {dev_['bf16_vs_f32/linear_outputs']:.3e} of the peak, "
+        f"alignments {dev_['bf16_vs_f32/alignments']:.3e} (bounds "
+        f"{BF16_SHARE} of the peak, {BF16_ALIGN})")
+    return dev_
+
+
+def bf16_serving(dev, main: dict, graphs: dict) -> dict:
+    """(b) Phase 4's rungs (a) and (b) in bf16 with phase 4's weights:
+    eagerly (the wrappers' counters: K1 120 on (a), K2 61 on (b)), then
+    each key prewarmed and replayed (bit-equal to eager, the same launches
+    in the replay's trace), with walls and the traced device busy time and
+    idle share beside phase 4's and 8's float32 figures."""
+    from tacotron_tpu_torch.synth import Synthesizer
+
+    cfg_bf = bf16_config(main["synth"].config)
+    synth = Synthesizer(device=dev).init_random(cfg_bf, seed=0)
+    hop = cfg_bf.audio.hop_length
+    expect = {"a": {"K1": 120, "K2": 0, "K3": 0},
+              "b": {"K1": 0, "K2": 61, "K3": 0}}
+    out = {}
+    for name in ("a", "b"):
+        kw = dict(main["calls"][name][1], librosa_trim=False)
+        call = (lambda kw=kw: synth.synthesize(**kw))
+        zero_counts()
+        want = call()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require(counts == expect[name], f"(b) call ({name}) launched "
+                f"{counts}, not {expect[name]}")
+        audio = check_waveforms(want, hop, f"(b) bf16 call ({name})")
+        _, wall_e = median_wall(call)
+        _, trace_e = traced(call)
+        require(trace_counts(trace_e) == counts,
+                f"(b) call ({name}): the eager trace counts "
+                f"{trace_counts(trace_e)}, the wrappers {counts}")
+        t0 = time.perf_counter()
+        synth.prewarm(**synth.prewarm_args(
+            kw["texts"], max_steps=kw["max_steps"],
+            fast_vocoder=kw.get("fast_vocoder", False)))
+        capture_s = time.perf_counter() - t0
+        replay_once(synth, call, f"(b) bf16 call ({name})", want)
+        _, wall_g = median_wall(call)
+        _, trace_g = traced(call)
+        require(trace_counts(trace_g) == counts,
+                f"(b) call ({name}): launches in the replay's trace "
+                f"{trace_counts(trace_g)} != eager {counts}")
+        f32 = graphs[name]
+        out[name] = dict(
+            launches=counts, audio_s=audio / cfg_bf.audio.sample_rate,
+            eager_s=wall_e, replay_s=wall_g, capture_s=capture_s,
+            eager_busy_ms=trace_e["device_busy_ms"],
+            replay_busy_ms=trace_g["device_busy_ms"],
+            eager_idle=trace_e["device_idle_share"],
+            replay_idle=trace_g["device_idle_share"])
+        o = out[name]
+        log(f"[bf16] (b) call ({name}): launches {counts}; eager "
+            f"{wall_e:.4f} s (f32 phase 4 {main[f'wall_{name}']:.4f}, phase "
+            f"8 {f32['eager_s']:.4f}), busy {o['eager_busy_ms']:.2f} ms, "
+            f"idle {o['eager_idle']:.4f} (f32 {f32['eager_idle']:.4f}); "
+            f"replay {wall_g:.4f} s (f32 {f32['replay_s']:.4f}), busy "
+            f"{o['replay_busy_ms']:.2f} ms, idle {o['replay_idle']:.4f} "
+            f"(f32 {f32['replay_idle']:.4f}); capture {capture_s:.2f} s; "
+            f"{o['audio_s']:.2f} s audio; replay bit-equal to eager")
+    return out
+
+
+def bf16_step_card_vs_cpu(dev, dirs) -> dict:
+    """(c) One bf16 train step at batch 4 (120-160 frames,
+    ``dropout_prob=0``) from the same weights and batch on the card and on
+    the CPU: loss rel 1e-2, gradient norm rel 2e-2 (the CPU test's bounds
+    against JAX); parameters and Adam moments float32."""
+    import dataclasses
+
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.train.state import create_train_state
+    from tacotron_tpu_torch.train.step import batch_to_device, make_train_step
+
+    cfg = bf16_config(train_config())
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_prob=0.0),
+                      data=dataclasses.replace(cfg.data, min_iters=30,
+                                               max_iters=41))
+    host = next(DataFeeder(dirs, cfg, batch_size=4, n_test=0,
+                           seed=3).batches())
+    got = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        state = create_train_state(cfg, seed=0, device=d)
+        state, metrics = make_train_step(cfg)(state, batch_to_device(host, d),
+                                              0)
+        require(all(t.dtype == torch.float32 for t in
+                    state.parameters() + state.opt.m + state.opt.v),
+                f"(c) {name}: parameters or moments left float32")
+        got[name] = {k: float(v) for k, v in metrics.items()}
+    rel = {k: abs(got["cuda"][k] - got["cpu"][k]) / abs(got["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    require(rel["loss"] <= BF16_LOSS_REL
+            and rel["grad_norm"] <= BF16_GRAD_NORM_REL,
+            f"(c) bf16 step card vs CPU: {got}")
+    log(f"[bf16] (c) one bf16 step at batch 4 card vs CPU: loss "
+        f"{got['cuda']['loss']:.6f} vs {got['cpu']['loss']:.6f} (rel "
+        f"{rel['loss']:.3e}), gradient norm {got['cuda']['grad_norm']:.5f} "
+        f"vs {got['cpu']['grad_norm']:.5f} (rel {rel['grad_norm']:.3e})")
+    return dict(rel, cuda=got["cuda"], cpu=got["cpu"])
+
+
+def bf16_training(dev, trained: dict, graphs: dict, tmp: str) -> dict:
+    """(c) 30 bf16 steps at batch 16 on phase 6's corpus, config and seed
+    (the loss falls), then eager and replayed steps on the same 4 batches
+    beside phase 6's and 8's float32 figures, and at NCCL world size 1 the
+    data-parallel bf16 step equal to the plain bf16 step over 2 steps."""
+    import os
+
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.parallel import distributed_initialize, make_mesh
+    from tacotron_tpu_torch.parallel.distributed import shutdown
+    from tacotron_tpu_torch.train.driver import train
+    from tacotron_tpu_torch.train.profile import time_train_steps
+    from tacotron_tpu_torch.train.step import batch_to_device, make_train_step
+    from tacotron_tpu_torch.utils import read_metrics
+
+    dirs = trained["corpus"]
+    out = {"card_vs_cpu": bf16_step_card_vs_cpu(dev, dirs)}
+    cfg = bf16_config(trained["config"])
+    run = os.path.join(tmp, "run_bf16")
+    t0 = time.perf_counter()
+    state = train(run, dirs, cfg, num_steps=30, device=dev)
+    out["run_s"] = time.perf_counter() - t0
+    losses = [r["loss"] for r in read_metrics(
+        os.path.join(run, "metrics.jsonl"), "train")]
+    require(len(losses) == 30 and np.isfinite(losses).all(),
+            f"(c) bf16 run losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[25:]))
+    require(last < first, f"(c) bf16 loss did not fall: {first} -> {last}")
+    f32_losses = [r["loss"] for r in read_metrics(
+        os.path.join(trained["run_dir"], "metrics.jsonl"), "train")]
+    out.update(loss_first5=first, loss_last5=last,
+               f32_first5=float(np.mean(f32_losses[:5])),
+               f32_last5=float(np.mean(f32_losses[25:])))
+
+    batches = DataFeeder(dirs, cfg, seed=5).batches()
+    host = [next(batches) for _ in range(5)]
+    eager = time_train_steps(state, make_train_step(cfg), iter(host), 1, 4)
+    step_fn = make_train_step(cfg)
+    t0 = time.perf_counter()
+    n = step_fn.prewarm(state, [batch_to_device(h, dev) for h in host])
+    capture_s = time.perf_counter() - t0
+    replay = time_train_steps(state, step_fn, iter(host), 1, 4)
+    out.update(eager=eager, replay=replay, graphs=n, capture_s=capture_s)
+    f6, f8 = trained["timing"], graphs["train"]
+    log(f"[bf16] (c) 30 bf16 steps at batch 16 in {out['run_s']:.1f} s: "
+        f"loss {first:.4f} (steps 1-5) -> {last:.4f} (26-30) (f32 phase 6 "
+        f"{out['f32_first5']:.4f} -> {out['f32_last5']:.4f}); the same 4 "
+        f"batches: eager {eager['sec_per_step']:.4f} s a step, "
+        f"{eager['target_frames_per_s']:.1f} frames/s, peak "
+        f"{eager['peak_memory_gib']:.2f} GiB allocated "
+        f"({eager['peak_reserved_gib']:.2f} reserved); replayed "
+        f"{replay['sec_per_step']:.4f} s, "
+        f"{replay['target_frames_per_s']:.1f} frames/s, peak "
+        f"{replay['peak_memory_gib']:.2f} GiB allocated "
+        f"({replay['peak_reserved_gib']:.2f} reserved), {n} graphs in "
+        f"{capture_s:.1f} s; f32: phase 6 {f6['sec_per_step']:.4f} s, "
+        f"phase 8 eager {f8['eager']['sec_per_step']:.4f} s "
+        f"({f8['eager']['target_frames_per_s']:.1f} frames/s, "
+        f"{f8['eager']['peak_memory_gib']:.2f} / "
+        f"{f8['eager']['peak_reserved_gib']:.2f} GiB), replayed "
+        f"{f8['replay']['sec_per_step']:.4f} s "
+        f"({f8['replay']['target_frames_per_s']:.1f} frames/s, "
+        f"{f8['replay']['peak_memory_gib']:.2f} / "
+        f"{f8['replay']['peak_reserved_gib']:.2f} GiB)")
+
+    # the data-parallel bf16 step at NCCL world size 1 against the plain one
+    cfg_p = bf16_config(parallel_config())
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    distributed_initialize(device=dev)
+    try:
+        plan = make_mesh(cfg_p.mesh)
+        require(plan.shard is not None and plan.backend == "nccl",
+                f"(c) plan {plan}")
+        plain = rows_steps(cfg_p, dirs, dev, None, slice(0, 16), n=2)
+        dp = rows_steps(cfg_p, dirs, dev, plan, slice(0, 16), n=2)
+    finally:
+        shutdown()
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(dp["losses"], plain["losses"]))
+    peak = max(float(np.abs(v).max()) for v in plain["params"].values())
+    param_err = max(float(np.abs(dp["params"][k] - v).max())
+                    for k, v in plain["params"].items()) / peak
+    require(loss_err <= 1e-6 and param_err <= 1e-6,
+            f"(c) data-parallel bf16 vs plain: loss {loss_err}, parameters "
+            f"{param_err} (limit 1e-6)")
+    out.update(dp_loss_err=loss_err, dp_param_err=param_err)
+    log(f"[bf16] (c) NCCL world size 1, 2 bf16 steps at batch 16: "
+        f"data-parallel against plain: loss {loss_err:.3e}, parameters "
+        f"{param_err:.3e} (relative; limit 1e-6)")
+    return out
+
+
+def bf16_preset_cli(config, tmp: str) -> dict:
+    """(d) ``python -m tacotron_tpu_torch.train --preset tpu --num_steps 3``
+    as a user runs it, on a corpus written by phase 6's writer (it stores
+    the waveforms) with 64 utterances a speaker: the feeder holds out a
+    batch a speaker for its test set, 32 at the preset's batch, which
+    would leave phase 6's 32 none to train on.  Exit 0, and the run's
+    ``config.json`` reads bf16 and batch 32."""
+    import os
+
+    from tacotron_tpu_torch.data import synthetic
+
+    per_speaker = synthetic.PER_SPEAKER
+    synthetic.PER_SPEAKER = 64
+    try:
+        dirs = synthetic.write_synthetic_corpus(
+            os.path.join(tmp, "corpus_preset"), config, seed=1)
+    finally:
+        synthetic.PER_SPEAKER = per_speaker
+    log_dir = os.path.join(tmp, "preset_logs")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tacotron_tpu_torch.train", "--preset", "tpu",
+         "--num_steps", "3", "--data_paths", ",".join(dirs), "--log_dir",
+         log_dir],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"(d) --preset tpu exited "
+                                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+    [run] = os.listdir(log_dir)
+    with open(os.path.join(log_dir, run, "config.json")) as fh:
+        saved = json.load(fh)
+    require(saved["model"]["compute_dtype"] == "bfloat16"
+            and saved["train"]["batch_size"] == 32
+            and saved["train"]["on_device_features"] is True,
+            f"(d) the run's config: model {saved['model']}, train "
+            f"{saved['train']}")
+    from tacotron_tpu_torch.utils import read_metrics
+    losses = [r["loss"] for r in read_metrics(
+        os.path.join(log_dir, run, "metrics.jsonl"), "train")]
+    require(len(losses) == 3 and np.isfinite(losses).all(),
+            f"(d) losses {losses}")
+    log(f"[bf16] (d) python -m tacotron_tpu_torch.train --preset tpu "
+        f"--num_steps 3: exit 0 in {wall:.1f} s, config.json bf16 at batch "
+        f"32 with on-device features, losses "
+        f"{[round(x, 4) for x in losses]}")
+    return {"wall_s": wall, "losses": losses}
+
+
+def bf16_phase(dev, main: dict, trained: dict, graphs: dict,
+               tmp: str) -> dict:
+    """Phase 11 (a)-(d) of the module docstring."""
+    t_phase = time.perf_counter()
+    out = {"forward": bf16_forward(dev, main, trained["corpus"]),
+           "serving": bf16_serving(dev, main, graphs)}
+    out["training"] = bf16_training(dev, trained, graphs, tmp)
+    out["cli"] = bf16_preset_cli(trained["config"], tmp)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2552,6 +2901,7 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
@@ -2599,6 +2949,7 @@ def main() -> int:
         graphs["wall_s"] = time.perf_counter() - t8
         par = parallel_phase(dev, main, trained, tmp)
         corpus = corpus_phase(dev, tmp)
+        bf16 = bf16_phase(dev, main, trained, graphs, tmp)
     for k, name in zip(kernels, ("K1", "K2", "K3")):
         k["launches_serving"] = {step: v[name]
                                  for step, v in serve["launches"].items()}
@@ -2663,6 +3014,35 @@ def main() -> int:
         # phase 10 (e): evaluate_speakers on the trained corpus voice
         k["launches_corpus"] = {c: v["launches"][name]
                                 for c, v in ev.items()}
+    for k, name in zip(kernels, ("K1", "K2", "K3")):
+        # phase 11 (b): the bf16 rungs, eagerly (their replays' traces
+        # count the same)
+        k["launches_bf16"] = {c: v["launches"][name]
+                              for c, v in bf16["serving"].items()}
+    fw, sv, tr = bf16["forward"], bf16["serving"], bf16["training"]
+    log(f"[bf16] forward card vs CPU: mel "
+        f"{fw['bf16_vs_cpu/mel_outputs']:.3e}, linear "
+        f"{fw['bf16_vs_cpu/linear_outputs']:.3e} of the peak; bf16 vs f32: "
+        f"mel {fw['bf16_vs_f32/mel_outputs']:.3e}, linear "
+        f"{fw['bf16_vs_f32/linear_outputs']:.3e}, alignments "
+        f"{fw['bf16_vs_f32/alignments']:.3e}; serving (a) "
+        f"{sv['a']['eager_s']:.4f} -> {sv['a']['replay_s']:.4f} s (f32 "
+        f"{g['a']['eager_s']:.4f} -> {g['a']['replay_s']:.4f}), (b) "
+        f"{sv['b']['eager_s']:.4f} -> {sv['b']['replay_s']:.4f} s (f32 "
+        f"{g['b']['eager_s']:.4f} -> {g['b']['replay_s']:.4f}); train step "
+        f"{tr['eager']['sec_per_step']:.4f} -> "
+        f"{tr['replay']['sec_per_step']:.4f} s (f32 "
+        f"{gt['eager']['sec_per_step']:.4f} -> "
+        f"{gt['replay']['sec_per_step']:.4f}), "
+        f"{tr['replay']['target_frames_per_s']:.1f} target frames/s "
+        f"replayed (f32 {gt['replay']['target_frames_per_s']:.1f}), peak "
+        f"{tr['eager']['peak_memory_gib']:.2f} / "
+        f"{tr['replay']['peak_reserved_gib']:.2f} GiB (f32 "
+        f"{gt['eager']['peak_memory_gib']:.2f} / "
+        f"{gt['replay']['peak_reserved_gib']:.2f}); loss "
+        f"{tr['loss_first5']:.4f} -> {tr['loss_last5']:.4f}; --preset tpu "
+        f"{bf16['cli']['wall_s']:.1f} s; phase 11 wall time "
+        f"{bf16['wall_s']:.1f} s on {card}")
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")

@@ -108,7 +108,8 @@ class ModelConfig:
     # decoder steps per input token for the length-adaptive decode budget
     steps_per_token: float = 4.0
 
-    # The port computes in float32 only; other values raise.
+    # Activations in float32 (reference parity) or "bfloat16"; parameters,
+    # BatchNorm statistics and the optimizer stay float32 either way.
     compute_dtype: str = "float32"
 
     # Loop-unroll knobs of the JAX scans; kept for config compatibility,
@@ -231,6 +232,36 @@ class Config:
 
     def replace(self, **sections) -> "Config":
         return dataclasses.replace(self, **sections)
+
+    @classmethod
+    def tpu_recommended(cls, base: "Config" = None,
+                        batch_size: int = 32) -> "Config":
+        """The JAX package's composed training preset (``train --preset
+        tpu``), with the same fields and values, on top of ``base`` (the
+        defaults if omitted): bfloat16 compute; ``decoder_unroll`` and
+        ``rnn_unroll`` 8; features extracted on the device from the stored
+        int16 waveforms (``on_device_features``, ``store_waveform``: build
+        the corpus with this config); batch 32.  The unroll fields are
+        stored so the JSON equals JAX's; the port's eager loops do not read
+        them."""
+        base = base if base is not None else cls()
+        return base.replace(
+            model=dataclasses.replace(
+                base.model, compute_dtype="bfloat16",
+                decoder_unroll=8, rnn_unroll=8),
+            train=dataclasses.replace(
+                base.train, on_device_features=True,
+                batch_size=batch_size),
+            data=dataclasses.replace(base.data, store_waveform=True),
+        )
+
+    def debug_string(self) -> str:
+        """Sorted hyperparameter dump, as the JAX config prints it."""
+        flat = {f"{section}.{key}": value
+                for section, fields in dataclasses.asdict(self).items()
+                for key, value in fields.items()}
+        return "Hyperparameters:\n" + "\n".join(
+            f"    {k}: {flat[k]}" for k in sorted(flat))
 
 
 def save_config(config: Config, path: str) -> None:

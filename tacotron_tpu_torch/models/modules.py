@@ -15,6 +15,11 @@ the convolutions transpose to [N, C, T] around ``F.conv1d``.
   flax does (momentum 0.99, the biased variance).
 - Dropout draws its masks from the ``torch.Generator`` the caller passes,
   so a train step's masks are a function of that generator's seed alone.
+- In a bfloat16 model (``ModelConfig.compute_dtype``) every layer computes
+  in its input's dtype with its parameters cast at use (``ops/cast.py``);
+  BatchNorm takes its statistics and normalizes in float32 and returns its
+  input's dtype, and dropout draws its uniforms in float32, so one
+  generator drops the same units in either dtype.
 - Under data parallelism (a ``DataShard`` of ``parallel/collectives.py``
   passed as ``shard``) both act on the global batch, as the JAX step's
   one program does: BatchNorm's statistics are sums over every rank's rows,
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cast import Linear, cast, conv1d
 from ..ops.rnn import BiGRU
 
 
@@ -49,7 +55,7 @@ def dropout(x: torch.Tensor, rate: float,
     if shard is not None:
         shape = (shape[0] * shard.size,) + shape[1:]
     keep = torch.rand(shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= rate
+                      dtype=torch.float32) >= rate
     if shard is not None:
         keep = shard.rows(keep)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
@@ -66,7 +72,7 @@ class Prenet(nn.Module):
         self.num_layers = len(layer_sizes)
         sizes = [input_size] + list(layer_sizes)
         for i in range(len(layer_sizes)):
-            self.add_module(f"dense_{i + 1}", nn.Linear(sizes[i], sizes[i + 1]))
+            self.add_module(f"dense_{i + 1}", Linear(sizes[i], sizes[i + 1]))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -83,8 +89,8 @@ class HighwayNet(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.H = nn.Linear(dim, dim)
-        self.T = nn.Linear(dim, dim)
+        self.H = Linear(dim, dim)
+        self.T = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.H(x))
@@ -99,11 +105,12 @@ def tf_same_pad_offset(kernel_width: int, bank_width: int) -> int:
 
 def _conv_same(x: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
-    """TF SAME stride-1 conv1d: x [N, T, C_in], weight [C_out, C_in, w]."""
+    """TF SAME stride-1 conv1d in ``x``'s dtype: x [N, T, C_in], weight
+    [C_out, C_in, w]."""
     width = weight.shape[-1]
     pad_left = (width - 1) // 2
     xt = F.pad(x.transpose(1, 2), (pad_left, width - 1 - pad_left))
-    return F.conv1d(xt, weight, bias).transpose(1, 2)
+    return conv1d(xt, weight, bias).transpose(1, 2)
 
 
 class ConvBank(nn.Module):
@@ -119,17 +126,18 @@ class ConvBank(nn.Module):
                 nn.Parameter(torch.empty(channels, in_features, k)))
         self.bias = nn.Parameter(torch.zeros(bank_size * channels))
 
-    def fused_kernel(self) -> torch.Tensor:
+    def fused_kernel(self, dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
         K = self.bank_size
         blocks = []
         for k in range(1, K + 1):
             offset = tf_same_pad_offset(k, K)
-            blocks.append(F.pad(getattr(self, f"kernel_{k}"),
+            blocks.append(F.pad(cast(getattr(self, f"kernel_{k}"), dtype),
                                 (offset, K - offset - k)))
         return torch.cat(blocks, dim=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_same(x, self.fused_kernel(), self.bias)
+        return _conv_same(x, self.fused_kernel(x.dtype), self.bias)
 
 
 class Conv1d(nn.Module):
@@ -152,6 +160,10 @@ class BatchNorm(nn.Module):
     the statistics run over every axis but the last, padded positions
     included; ``var = max(0, E[x^2] - E[x]^2)`` (the biased variance); and
     the running statistics move as ``0.99 * running + 0.01 * batch``.
+    As flax's (``force_float32_reductions``), the statistics are taken in
+    float32 from a bfloat16 input, the normalization runs in float32 with
+    the float32 parameters and statistics, and the output is cast to the
+    input's dtype, in both modes.
     ``F.batch_norm`` would put the unbiased variance into ``running_var``
     and compute the variance another way, so this is written out.
 
@@ -172,12 +184,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        # one float32 copy of x feeds the statistics and the normalization,
+        # so their gradients, which nearly cancel, add up in float32
+        xf = x.float()
         if not self.training:
             mul = torch.rsqrt(self.running_var + self.EPS) * self.weight
-            return (x - self.running_mean) * mul + self.bias
+            return ((xf - self.running_mean) * mul + self.bias).to(x.dtype)
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(dim=axes)
-        mean_sq = (x * x).mean(dim=axes)
+        mean = xf.mean(dim=axes)
+        mean_sq = (xf * xf).mean(dim=axes)
         if shard is not None:
             # every rank's batch has one shape, so the mean of the ranks'
             # means is the global batch's (and one rank's is its own)
@@ -191,7 +206,7 @@ class BatchNorm(nn.Module):
             self.running_var.copy_(m * self.running_var
                                    + (1.0 - m) * var.detach())
         mul = torch.rsqrt(var + self.EPS) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
 def max_pool_same(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -227,7 +242,7 @@ class CBHG(nn.Module):
             self.add_module(f"proj_{idx + 1}_bn", BatchNorm(size))
             prev = size
         if in_features != rnn_size:
-            self.highway_dim_fix = nn.Linear(in_features, rnn_size)
+            self.highway_dim_fix = Linear(in_features, rnn_size)
         else:
             self.highway_dim_fix = None
         for idx in range(highway_depth):

@@ -34,11 +34,25 @@ encoder BiGRU initial state, the attention GRU initial state and each
 decoder GRU initial state; with ``speaker_embedding_size == 1`` each site
 has its own raw table instead.  'simple' concatenates the embedding at the
 decoder prenet output, the attention output and the post-net output.
+
+``compute_dtype="bfloat16"`` runs every activation in bfloat16, as the JAX
+model does; parameters, BatchNorm statistics and the optimizer stay
+float32.  The model casts the character embedding after its lookup, the
+speaker conditioning (computed in float32) and the teacher-forced targets;
+the decoder's carry starts in the memory's dtype, manual alignments enter
+it in that dtype, and every layer casts its parameters at use
+(``ops/cast.py``), once a forward: :func:`~..ops.cast.compute_copies`
+makes one bfloat16 copy of each parameter before the encoder, which the
+decoder's steps reuse.  The outputs are float32, for the losses and the
+vocoder.  The normalized Bahdanau score (``bah_norm``) promotes to float32
+in JAX's model, whose decode scan then fails to trace in bfloat16; this
+model refuses that combination.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+import contextlib
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,9 +60,13 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.attention import initial_alignments, make_attention
+from ..ops.cast import Linear, compute_copies
 from ..ops.rnn import GRUCell
 from ..text.symbols import VOCAB_SIZE
-from .modules import CBHG, Embed, Prenet
+from .modules import CBHG, BatchNorm, Embed, Prenet
+
+#: ``ModelConfig.compute_dtype`` values the model runs
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class SpeakerConditioning(NamedTuple):
@@ -82,12 +100,12 @@ class DecoderStep(nn.Module):
         self.attention = make_attention(cfg.attention_type,
                                         cfg.attention_state_size,
                                         cfg.attention_size)
-        self.decoder_input_projection = nn.Linear(
+        self.decoder_input_projection = Linear(
             cfg.attention_state_size + memory_dim + spk, cfg.dec_rnn_size)
         for i in range(cfg.dec_layer_num):
             self.add_module(f"decoder_rnn_{i + 1}",
                             GRUCell(cfg.dec_rnn_size, cfg.dec_rnn_size))
-        self.frame_projection = nn.Linear(
+        self.frame_projection = Linear(
             cfg.dec_rnn_size, cfg.num_mels * cfg.reduction_factor)
 
     def forward(self, x, attn_state, context, alignments, dec_states, keys,
@@ -100,6 +118,7 @@ class DecoderStep(nn.Module):
         attn_state = self.attention_rnn(attn_state, pre)
         computed = self.attention(attn_state, keys, alignments)
         if manual_t is not None:
+            # manual_t is in the carry's dtype, so the carry keeps it
             computed = torch.where(is_manual, manual_t, computed)
         context = torch.einsum("nt,ntd->nd", computed, values)
         concat = torch.cat([attn_state, context], dim=-1)
@@ -120,11 +139,17 @@ class Tacotron(nn.Module):
 
     def __init__(self, cfg: ModelConfig, vocab_size: int = VOCAB_SIZE):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r} is not ported; the "
-                f"port computes in float32")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is not one "
+                             f"of {sorted(COMPUTE_DTYPES)}")
+        if cfg.compute_dtype != "float32" and cfg.attention_type == "bah_norm":
+            raise ValueError(
+                f"attention_type 'bah_norm' computes its score in float32 "
+                f"(its weight vector is not cast), so the decoder's carry "
+                f"would leave {cfg.compute_dtype}; the JAX model's decode "
+                f"scan fails to trace for the same reason")
         self.cfg = cfg
+        self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         memory_dim = 2 * cfg.enc_rnn_size
         self.char_embedding = Embed(vocab_size, cfg.embedding_size, 0.5)
         self.encoder_prenet = Prenet(cfg.embedding_size, cfg.enc_prenet_sizes,
@@ -134,14 +159,14 @@ class Tacotron(nn.Module):
             cfg.enc_bank_channel_size, cfg.enc_maxpool_width,
             cfg.enc_highway_depth, cfg.enc_rnn_size, cfg.enc_proj_sizes,
             cfg.enc_proj_width)
-        self.attention_memory_layer = nn.Linear(memory_dim, cfg.attention_size,
-                                                bias=False)
+        self.attention_memory_layer = Linear(memory_dim, cfg.attention_size,
+                                             bias=False)
         self.decoder = DecoderStep(cfg, memory_dim)
         self.post_cbhg = CBHG(
             cfg.num_mels, cfg.post_bank_size, cfg.post_bank_channel_size,
             cfg.post_maxpool_width, cfg.post_highway_depth, cfg.post_rnn_size,
             cfg.post_proj_sizes, cfg.post_proj_width)
-        self.linear_projection = nn.Linear(
+        self.linear_projection = Linear(
             2 * cfg.post_rnn_size + _speaker_concat(cfg), cfg.num_freq)
         self._build_speaker_modules()
 
@@ -175,10 +200,12 @@ class Tacotron(nn.Module):
         else:
             self.speaker_embedding = Embed(S, E, 0.5)
             for site, width in sites:
-                self.add_module(f"deep_{site}", nn.Linear(E, width))
+                self.add_module(f"deep_{site}", Linear(E, width))
 
     def speaker_conditioning(self, speaker_id: Optional[torch.Tensor]
                              ) -> SpeakerConditioning:
+        """The speaker injections, computed in float32 (the caller casts
+        them to the compute dtype)."""
         cfg = self.cfg
         if cfg.num_speakers <= 1:
             return SpeakerConditioning()
@@ -213,9 +240,10 @@ class Tacotron(nn.Module):
                cond: SpeakerConditioning,
                generator: Optional[torch.Generator] = None,
                shard=None) -> torch.Tensor:
-        """Token ids [N, T_in] -> memory [N, T_in, 2*enc_rnn_size]."""
-        pre = self.encoder_prenet(self.char_embedding(inputs), generator,
-                                  shard)
+        """Token ids [N, T_in] -> memory [N, T_in, 2*enc_rnn_size] in the
+        compute dtype."""
+        embedded = self.char_embedding(inputs).to(self.compute_dtype)
+        pre = self.encoder_prenet(embedded, generator, shard)
         return self.encoder_cbhg(pre, input_lengths,
                                  before_highway=cond.before_highway,
                                  rnn_init_state=cond.encoder_rnn_init,
@@ -248,6 +276,8 @@ class Tacotron(nn.Module):
         prev_frame = memory.new_zeros((N, cfg.num_mels))
         if is_manual is not None:
             is_manual = torch.as_tensor(is_manual, device=memory.device)
+        if manual_alignments is not None:
+            manual_alignments = manual_alignments.to(memory.dtype)
 
         all_frames, all_aligns = [], []
         for t in range(num_steps):
@@ -265,6 +295,15 @@ class Tacotron(nn.Module):
 
     # ------------------------------------------------------------- forward
 
+    def compute_parameters(self) -> List[nn.Parameter]:
+        """The parameters the layers cast to the compute dtype: all but
+        the BatchNorms', the embedding tables' and the speaker layers'
+        (those compute in float32, as in JAX)."""
+        kept = {id(p) for name, m in self.named_modules()
+                if isinstance(m, (BatchNorm, Embed))
+                or name.startswith("deep_") for p in m.parameters()}
+        return [p for p in self.parameters() if id(p) not in kept]
+
     def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                 speaker_id: Optional[torch.Tensor] = None,
                 mel_targets: Optional[torch.Tensor] = None,
@@ -278,15 +317,34 @@ class Tacotron(nn.Module):
         [N, T_out, F] and ``alignments`` [N, T_in, T_dec].
         ``dropout_generator`` feeds the prenets' dropout in training mode
         (the post-net has none); ``data_shard`` makes the training-mode
-        statistics and masks global over the data group."""
+        statistics and masks global over the data group.  The outputs are
+        float32 whatever the compute dtype."""
+        dtype = self.compute_dtype
+        cond = self.speaker_conditioning(speaker_id)
+        if dtype == torch.float32:
+            copies = contextlib.nullcontext()
+        else:
+            cond = SpeakerConditioning(*(
+                None if f is None else
+                tuple(t.to(dtype) for t in f) if isinstance(f, tuple)
+                else f.to(dtype) for f in cond))
+            copies = compute_copies(self.compute_parameters(), dtype)
+        with copies:
+            out = self._forward(inputs, input_lengths, cond, mel_targets,
+                                max_steps, manual_alignments, is_manual,
+                                dropout_generator, data_shard)
+        return {k: v.float() for k, v in out.items()}
+
+    def _forward(self, inputs, input_lengths, cond, mel_targets, max_steps,
+                 manual_alignments, is_manual, dropout_generator,
+                 data_shard) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         r = cfg.reduction_factor
-        cond = self.speaker_conditioning(speaker_id)
         memory = self.encode(inputs, input_lengths, cond, dropout_generator,
                              data_shard)
 
         if mel_targets is not None:
-            taken = mel_targets[:, r - 1::r, :]
+            taken = mel_targets.to(memory.dtype)[:, r - 1::r, :]
             decoder_inputs = torch.cat(
                 [torch.zeros_like(taken[:, :1]), taken[:, :-1]], dim=1)
             num_steps = decoder_inputs.shape[1]

@@ -10,6 +10,13 @@ of the reference, ``models/tacotron.py:132-152``).
 Each module scores one decode step.  The one-time key projection of the
 encoder memory lives in the model, outside the decode loop.  No mechanism
 masks padded memory positions, as in the reference.
+
+Each mechanism computes in its query's dtype with its parameters cast at
+use, as the JAX modules do, down to the monotonic recurrence's log-space
+cumulative product in bfloat16; its cumulative sums add in float32 and
+round each output once, on the CPU and the card alike.  The normalized
+Bahdanau score keeps JAX's promotion: its weight vector is float32, so
+the score and the alignments are float32 whatever the query's dtype.
 """
 
 from __future__ import annotations
@@ -19,11 +26,18 @@ import math
 import torch
 from torch import nn
 
+from .cast import Linear, cast
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum along the last axis, added in float32."""
+    return torch.cumsum(x, dim=-1, dtype=torch.float32).to(x.dtype)
+
 
 def safe_exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
     """Exclusive cumprod along the last axis, taken in log space."""
     logs = torch.log(torch.clamp(x, 1e-10, 1.0))
-    cums = torch.cumsum(logs, dim=-1)
+    cums = _cumsum(logs)
     exclusive = torch.cat([torch.zeros_like(cums[..., :1]), cums[..., :-1]],
                           dim=-1)
     return torch.exp(exclusive)
@@ -33,23 +47,24 @@ def monotonic_alignments(p_choose: torch.Tensor,
                          previous: torch.Tensor) -> torch.Tensor:
     """alpha_i = p_i prod_{j<i}(1-p_j) sum_{k<=i} prev_k / prod_{j<k}(1-p_j)"""
     cumprod_1mp = safe_exclusive_cumprod(1.0 - p_choose)
-    return p_choose * cumprod_1mp * torch.cumsum(
-        previous / torch.clamp(cumprod_1mp, 1e-10, 1.0), dim=-1)
+    return p_choose * cumprod_1mp * _cumsum(
+        previous / torch.clamp(cumprod_1mp, 1e-10, 1.0))
 
 
 class BahdanauMonotonicAttention(nn.Module):
     def __init__(self, query_size: int, num_units: int):
         super().__init__()
-        self.query_layer = nn.Linear(query_size, num_units, bias=False)
+        self.query_layer = Linear(query_size, num_units, bias=False)
         self.attention_v = nn.Parameter(torch.empty(num_units, 1))
         self.score_bias = nn.Parameter(torch.zeros(()))
 
     def forward(self, query, keys, previous_alignments):
         """query [N, H], keys [N, T, U], previous [N, T] -> [N, T]."""
+        dtype = query.dtype
         processed = self.query_layer(query)
         score = (torch.tanh(keys + processed[:, None, :])
-                 @ self.attention_v).squeeze(-1)
-        p_choose = torch.sigmoid(score + self.score_bias)
+                 @ cast(self.attention_v, dtype)).squeeze(-1)
+        p_choose = torch.sigmoid(score + cast(self.score_bias, dtype))
         return monotonic_alignments(p_choose, previous_alignments)
 
 
@@ -58,7 +73,7 @@ class BahdanauAttention(nn.Module):
                  normalize: bool = False):
         super().__init__()
         self.normalize = normalize
-        self.query_layer = nn.Linear(query_size, num_units, bias=False)
+        self.query_layer = Linear(query_size, num_units, bias=False)
         self.attention_v = nn.Parameter(torch.empty(num_units, 1))
         if normalize:
             self.attention_g = nn.Parameter(
@@ -66,17 +81,18 @@ class BahdanauAttention(nn.Module):
             self.attention_b = nn.Parameter(torch.zeros(num_units))
 
     def forward(self, query, keys, previous_alignments):
+        dtype = query.dtype
         processed = self.query_layer(query)
         if self.normalize:
             v = self.attention_v[:, 0]
-            vn = self.attention_g * v / torch.linalg.vector_norm(v)
-            score = torch.einsum(
-                "ntu,u->nt",
-                torch.tanh(keys + processed[:, None, :] + self.attention_b),
-                vn)
+            vn = (cast(self.attention_g, dtype) * v
+                  / torch.linalg.vector_norm(v).to(dtype))
+            hidden = torch.tanh(keys + processed[:, None, :]
+                                + cast(self.attention_b, dtype))
+            score = torch.einsum("ntu,u->nt", hidden.to(vn.dtype), vn)
         else:
             score = (torch.tanh(keys + processed[:, None, :])
-                     @ self.attention_v).squeeze(-1)
+                     @ cast(self.attention_v, dtype)).squeeze(-1)
         return torch.softmax(score, dim=-1)
 
 
@@ -90,7 +106,7 @@ class LuongAttention(nn.Module):
     def forward(self, query, keys, previous_alignments):
         score = torch.einsum("nu,ntu->nt", query, keys)
         if self.scale:
-            score = self.attention_g * score
+            score = cast(self.attention_g, query.dtype) * score
         return torch.softmax(score, dim=-1)
 
 

@@ -10,6 +10,12 @@ Gate conventions follow the TF1 ``GRUCell`` that the reference trained with
 The input halves of both products do not depend on the carry, so a sequence
 computes them for every step at once and the Python time loop only does the
 carry halves.
+
+The carry is kept in the compute dtype (the carry's dtype decides, as in
+JAX).  In bfloat16 the split products are taken in float32 from the
+bfloat16 operands and their sum (bias included) is rounded to bfloat16
+once a step, where JAX's one product over ``[x, h]`` rounds once before
+its bias add; the step's elementwise math then runs in bfloat16.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .cast import Linear, cast
+
 
 class GRUCell(nn.Module):
     """TF1-convention GRU cell; parameters ``gates`` and ``candidate`` are
@@ -29,8 +37,8 @@ class GRUCell(nn.Module):
         super().__init__()
         self.input_size = input_size
         self.features = features
-        self.gates = nn.Linear(input_size + features, 2 * features)
-        self.candidate = nn.Linear(input_size + features, features)
+        self.gates = Linear(input_size + features, 2 * features)
+        self.candidate = Linear(input_size + features, features)
 
     def forward(self, carry: torch.Tensor, inputs: torch.Tensor) -> torch.Tensor:
         """One step: carry [N, H], inputs [N, D] -> new carry [N, H]."""
@@ -39,21 +47,42 @@ class GRUCell(nn.Module):
         c = torch.tanh(self.candidate(torch.cat([inputs, r * carry], -1)))
         return u * carry + (1.0 - u) * c
 
-    def input_projections(self, xs: torch.Tensor
+    def input_projections(self, xs: torch.Tensor,
+                          dtype: Optional[torch.dtype] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Input halves of both products for a whole sequence [N, T, D]."""
+        """Input halves of both products, with the biases, for a whole
+        sequence [N, T, D] in float32, from the operands in ``dtype`` (the
+        carry's; default ``xs``'s)."""
         d = self.input_size
-        gx = F.linear(xs, self.gates.weight[:, :d], self.gates.bias)
-        cx = F.linear(xs, self.candidate.weight[:, :d], self.candidate.bias)
-        return gx, cx
+        dtype = dtype or xs.dtype
+
+        def half(layer):
+            return F.linear(xs.to(dtype).float(),
+                            cast(layer.weight, dtype)[:, :d].float(),
+                            cast(layer.bias, dtype).float())
+
+        return half(self.gates), half(self.candidate)
+
+    def carry_weights(self, dtype: torch.dtype
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Carry halves of both weights, transposed, in float32 from their
+        values in ``dtype`` (the carry's): made once a sequence."""
+        d = self.input_size
+        return (cast(self.gates.weight, dtype)[:, d:].float().T,
+                cast(self.candidate.weight, dtype)[:, d:].float().T)
 
     def step_projected(self, carry: torch.Tensor, gx: torch.Tensor,
-                       cx: torch.Tensor) -> torch.Tensor:
-        """One step from precomputed input projections (``gx``, ``cx`` [N, *])."""
-        d = self.input_size
-        gates = torch.sigmoid(gx + carry @ self.gates.weight[:, d:].T)
+                       cx: torch.Tensor,
+                       weights: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
+                       ) -> torch.Tensor:
+        """One step from the input projections (``gx``, ``cx`` [N, *]) and
+        :meth:`carry_weights` (made here when not given)."""
+        dtype = carry.dtype
+        wg, wc = weights or self.carry_weights(dtype)
+        gates = torch.sigmoid((gx + carry.float() @ wg).to(dtype))
         r, u = gates.chunk(2, dim=-1)
-        c = torch.tanh(cx + (r * carry) @ self.candidate.weight[:, d:].T)
+        c = torch.tanh((cx + (r * carry).float() @ wc).to(dtype))
         return u * carry + (1.0 - u) * c
 
 
@@ -100,14 +129,16 @@ class BiGRU(nn.Module):
         else:
             xs_rev = reverse_sequence(xs, lengths)
             t = torch.arange(T, device=xs.device)
-            mask = (t[None, :] < lengths.to(xs.device)[:, None]).to(xs.dtype)
+            mask = (t[None, :] < lengths.to(xs.device)[:, None]).to(h_fw.dtype)
 
-        gx_f, cx_f = self.fw.input_projections(xs)
-        gx_b, cx_b = self.bw.input_projections(xs_rev)
+        dtype = h_fw.dtype
+        gx_f, cx_f = self.fw.input_projections(xs, dtype)
+        gx_b, cx_b = self.bw.input_projections(xs_rev, dtype)
+        w_f, w_b = self.fw.carry_weights(dtype), self.bw.carry_weights(dtype)
         ys_fw, ys_bw = [], []
         for i in range(T):
-            new_fw = self.fw.step_projected(h_fw, gx_f[:, i], cx_f[:, i])
-            new_bw = self.bw.step_projected(h_bw, gx_b[:, i], cx_b[:, i])
+            new_fw = self.fw.step_projected(h_fw, gx_f[:, i], cx_f[:, i], w_f)
+            new_bw = self.bw.step_projected(h_bw, gx_b[:, i], cx_b[:, i], w_b)
             if mask is None:
                 h_fw, h_bw = new_fw, new_bw
                 ys_fw.append(new_fw)

@@ -26,10 +26,10 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import MeshConfig
+from ..ops.cast import linear
 from .collectives import DataShard, _call, broadcast_
 from .distributed import local_device
 
@@ -258,7 +258,7 @@ class ColumnParallelLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _CopyToModel.apply(x, self.group)
-        y = F.linear(x, self.weight, self.bias)
+        y = linear(x, self.weight, self.bias)
         return _GatherColumns.apply(y, self.group, self.index, self.size)
 
 

@@ -439,8 +439,11 @@ class Synthesizer:
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
-        # fp32 parity with the reference: no TF32 in matmuls or cuDNN convs
+        # fp32 parity with the reference: no TF32 in matmuls or cuDNN
+        # convs; bf16 products summed in float32, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         torch.backends.cudnn.allow_tf32 = False
         self.config: Optional[Config] = None
         self.model: Optional[Tacotron] = None

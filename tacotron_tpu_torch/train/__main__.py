@@ -8,8 +8,10 @@
 
 Runs on the card; ``--device cpu`` runs on the CPU instead.  ``--prewarm``
 captures the train step as one CUDA graph per bucket shape before the
-first step.  ``--preset tpu`` and ``--scan_unroll`` are XLA settings and
-are refused.
+first step.  ``--preset tpu`` applies ``Config.tpu_recommended`` (bfloat16
+compute, on-device features from stored waveforms, batch 32) to the loaded
+config before the other flags, as the JAX CLI does; ``--scan_unroll`` is
+an XLA setting and is refused.
 
 ``--distributed`` joins the process group of a ``torchrun`` launch (one
 process per card, NCCL; gloo with ``--device cpu``) and trains data-
@@ -34,9 +36,11 @@ from .driver import train
 
 
 def build_config(args, data_paths) -> Config:
-    """The run's config: ``--config`` (or the defaults) with the flags
-    applied; one speaker per data dir."""
+    """The run's config: ``--config`` (or the defaults), then ``--preset``,
+    then the other flags; one speaker per data dir."""
     config = load_config(args.config) if args.config else Config()
+    if args.preset == "tpu":
+        config = Config.tpu_recommended(config)
     model_kw = {"num_speakers": len(data_paths)}
     if args.model_type:
         model_kw["model_type"] = args.model_type
@@ -70,8 +74,11 @@ def main(argv=None) -> None:
                         help="run dir to warm-start from (resets step)")
     parser.add_argument("--config", default=None,
                         help="config.json overriding the defaults")
-    parser.add_argument("--preset", default=None,
-                        help="refused: 'tpu' is an XLA preset")
+    parser.add_argument("--preset", default=None, choices=["tpu"],
+                        help="'tpu' applies Config.tpu_recommended() on top "
+                             "of the loaded config: bf16 compute, on-device "
+                             "feature extraction (a corpus built with "
+                             "DataConfig.store_waveform), batch 32")
     parser.add_argument("--num_steps", type=int, default=100000)
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--model_type", default=None,
@@ -123,10 +130,6 @@ def main(argv=None) -> None:
                              "rank pads its batches to the corpus maxima")
     args = parser.parse_args(argv)
 
-    if args.preset is not None:
-        parser.error(f"--preset {args.preset!r} applies XLA settings "
-                     f"(bf16 compute, scan unroll); the port trains in "
-                     f"float32 and has no preset")
     if args.scan_unroll is not None:
         parser.error("--scan_unroll sets the unroll of XLA scans; the port's "
                      "loops are eager PyTorch and take no unroll")

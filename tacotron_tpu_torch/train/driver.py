@@ -64,12 +64,8 @@ class DivergenceError(RuntimeError):
 
 
 def debug_string(config: Config) -> str:
-    """Sorted hyperparameter dump, as the JAX config prints it."""
-    flat = {f"{section}.{key}": value
-            for section, fields in json.loads(config.to_json()).items()
-            for key, value in fields.items()}
-    return "Hyperparameters:\n" + "\n".join(
-        f"    {k}: {flat[k]}" for k in sorted(flat))
+    """Sorted hyperparameter dump (``Config.debug_string``)."""
+    return config.debug_string()
 
 
 def train(run_dir: str, data_paths: Sequence[str], config: Config,
@@ -143,11 +139,13 @@ def train(run_dir: str, data_paths: Sequence[str], config: Config,
         if primary:
             log(msg, notify=notify)
 
-    # float32 as the reference trained: no TF32 in matmuls or cuDNN convs;
+    # float32 as the reference trained: no TF32 in matmuls or cuDNN convs
+    # (and bf16 products summed in float32, as XLA sums them);
     # deterministic cuDNN algorithms, so a run repeats bit for bit on the
     # card: the default convolution backward sums in a varying order, and
     # two such 30-step runs on an H100 ended ~3 % apart in the loss
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     if primary:

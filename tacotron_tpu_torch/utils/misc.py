@@ -1,13 +1,14 @@
-"""Misc helpers: moving-average window, run-dir naming, git provenance.
-A copy of the parts of the JAX package's ``utils/misc.py`` that training
-uses."""
+"""Misc helpers: moving-average window, run-dir naming, parallel map,
+boolean flags, git provenance.  A copy of the JAX package's
+``utils/misc.py``."""
 
 from __future__ import annotations
 
 import os
 import subprocess
 from datetime import datetime
-from typing import List, Optional, Sequence
+from multiprocessing import Pool, cpu_count
+from typing import Any, Callable, Iterable, List, Optional, Sequence
 
 
 class ValueWindow:
@@ -48,6 +49,31 @@ def prepare_dirs(log_root: str, data_paths: Sequence[str],
     run_dir = os.path.join(log_root, f"{names}_{stamp}")
     os.makedirs(run_dir, exist_ok=True)
     return run_dir
+
+
+def parallel_run(fn: Callable, items: Iterable[Any],
+                 parallel: bool = True,
+                 workers: Optional[int] = None) -> List[Any]:
+    """``[fn(x) for x in items]``, over a process pool of ``workers``
+    (default: the CPU count, at most 8) when ``parallel`` and there are
+    two items or more; ``fn`` must be picklable."""
+    items = list(items)
+    if not parallel or len(items) < 2:
+        return [fn(x) for x in items]
+    with Pool(workers or min(cpu_count(), 8)) as pool:
+        return pool.map(fn, items)
+
+
+def str2bool(v) -> bool:
+    """``argparse`` type of a boolean flag: yes/true/t/1 or no/false/f/0,
+    any case; a bool passes through."""
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "0"):
+        return False
+    raise ValueError(f"boolean value expected, got {v!r}")
 
 
 def get_git_revision_hash() -> str:

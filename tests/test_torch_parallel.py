@@ -13,7 +13,9 @@
   against the JAX sharded step on the 8 virtual CPU devices
   (``tests/conftest.py``) from the same weights through ``params.py``:
   losses rtol 1e-5, parameters rtol 1e-3 / atol 1e-5, the JAX test's own
-  tolerances (``tests/test_multiprocess_dp.py``).  The same launch checks
+  tolerances (``tests/test_multiprocess_dp.py``); dropout on in bf16,
+  against the port's one-process bf16 run (the first loss rtol 1e-5, the
+  others 1e-3, parameters within 2 * lr * 3).  The same launch checks
   that a batch-shape mismatch raises on both ranks and that prewarm on a
   gloo group is refused.
 - Sharded synthesis: 2 ranks of ``make_sharded_synthesis`` against the
@@ -100,7 +102,7 @@ def _job_dp(out: Path) -> None:
     rank = dist.get_rank()
     data = np.load(out / "batches.npz")
     saved = {}
-    for variant in ("dropout", "nodropout"):
+    for variant in ("dropout", "nodropout", "bf16"):
         cfg = load_config(str(out / f"{variant}.json"))
         plan = make_mesh(cfg.mesh)
         assert plan.data_size == 2 and plan.data_index == rank
@@ -329,6 +331,13 @@ def _dp_configs():
     return cfg, nodrop
 
 
+def _bf16_config(cfg):
+    """The dropout-on config computing in bfloat16."""
+    import dataclasses
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 compute_dtype="bfloat16"))
+
+
 def _dp_batches(cfg, seed: int = 7):
     rng = np.random.default_rng(seed)
     m = cfg.model
@@ -395,6 +404,7 @@ def dp_run(tmp_path_factory):
         jax.tree.map(np.asarray, variables)))
     (out / "dropout.json").write_text(cfg.to_json())
     (out / "nodropout.json").write_text(nodrop.to_json())
+    (out / "bf16.json").write_text(_bf16_config(cfg).to_json())
     batches = _dp_batches(cfg)
     np.savez(out / "batches.npz", **{f"{t}/{k}": v
                                      for t, b in enumerate(batches)
@@ -405,6 +415,8 @@ def dp_run(tmp_path_factory):
         refs = dict(
             single=_port_single(out / "dropout.json", out / "weights.npz",
                                 batches),
+            single_bf16=_port_single(out / "bf16.json", out / "weights.npz",
+                                     batches),
             jax_step=_jax_sharded_step(nodrop, variables, batches),
             jax_synth=_jax_sharded_synthesis(*synth))
     finally:
@@ -503,6 +515,30 @@ def test_two_process_dp_matches_one_process_dropout_on(dp_run):
         assert np.array_equal(r0[f"dropout/{k}"], r1[f"dropout/{k}"]), k
     assert bool(r0["mismatch_raised"]) and bool(r1["mismatch_raised"])
     assert bool(r0["prewarm_refused"]) and bool(r1["prewarm_refused"])
+
+
+def test_two_process_dp_matches_one_process_bf16(dp_run):
+    """The same launch's bf16 variant (dropout on): BatchNorm moments and
+    gradients all-reduced in float32, parameters float32, both ranks
+    bit-equal.  Against the port's one-process bf16 run over the
+    concatenated batch: the first step's loss rtol 1e-5 (one forward);
+    then each rank's weight gradients are bf16 products rounded before
+    their float32 sum, not after, so the later losses are held to rtol
+    1e-3 and the parameters to Adam's reach over the steps, 2 * lr * 3
+    (measured: losses 7.1e-5 apart at step 3, parameters 2.0e-5)."""
+    losses, params, _ = dp_run["single_bf16"]
+    r0, r1 = dp_run["ranks"]
+    got = r0["bf16/losses"]
+    np.testing.assert_allclose(got[0], losses[0], rtol=1e-5)
+    np.testing.assert_allclose(got, losses, rtol=1e-3)
+    reach = 2 * dp_run["cfg"].train.initial_learning_rate * STEPS
+    for k, v in params.items():
+        assert r0[f"bf16/{k}"].dtype == np.float32, k
+        np.testing.assert_allclose(r0[f"bf16/{k}"], v, rtol=0, atol=reach,
+                                   err_msg=k)
+        assert np.array_equal(r0[f"bf16/{k}"], r1[f"bf16/{k}"]), k
+    # the bf16 run is another program than the float32 one
+    assert not np.allclose(got, r0["dropout/losses"], rtol=1e-6, atol=0)
 
 
 def test_two_process_dp_matches_jax_sharded_step(dp_run):

@@ -390,12 +390,14 @@ def test_train_prewarm_logs_and_keeps_state(corpus, tmp_path, monkeypatch,
     assert losses[0] == losses[1]
 
 
-@pytest.mark.parametrize("flag", [["--preset", "tpu"],
+@pytest.mark.parametrize("flag", [["--preset", "gpu"],
                                   ["--scan_unroll", "8"], ["--distributed"]])
 def test_cli_refuses_xla_and_multi_gpu_flags(corpus, tmp_path, flag,
                                              monkeypatch):
-    # --distributed trains under torchrun (tests/test_torch_parallel.py);
-    # without torchrun's environment it is refused
+    # --preset takes JAX's one choice, "tpu" (applied, see
+    # tests/test_torch_bf16.py); --distributed trains under torchrun
+    # (tests/test_torch_parallel.py); without torchrun's environment it is
+    # refused
     for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(name, raising=False)
     from tacotron_tpu_torch.train.__main__ import main
