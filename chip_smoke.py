@@ -147,7 +147,7 @@
    (bit-equal to eager, the same launches in the replay's trace), walls,
    device busy time and idle share beside the float32 figures; (c) one
    bf16 step at batch 4 on the card against the CPU (loss rel 1e-2,
-   gradient norm rel 2e-2), 30 bf16 steps at batch 16 (the loss falls),
+   gradient norm rel 2e-2), 20 bf16 steps at batch 16 (the loss falls),
    eager and replayed steps on the same 4 batches (step time, target
    frames/s, peak memory) beside phase 6's and 8's, and at NCCL world size
    1 the data-parallel bf16 step equal to the plain one over 2 steps; (d)
@@ -157,7 +157,27 @@
    ``config.json`` bf16 at batch 32.  A ``[bf16]``
    line sums it up; (b)'s launches are the kernels' ``launches_bf16``.
    There is no fallback: a bf16 failure fails the script.
-12. Prints the kernels line, the card line, and last the result line
+12. Convergence and checkpoints (``studies/``, ``train/checkpoint.py``):
+   (a) checkpoint saves at full width on phase 6's config (parameters and
+   Adam moments, about 112 MB in float32): how long ``save`` blocks,
+   asynchronous against ``async_save=False`` (median of 3), how long the
+   write takes to become durable, the replayed train step alone and with
+   an asynchronous write in flight, and a checkpoint saved while replayed
+   steps update the state in place read back bit-equal to the state at
+   its step; (b) ``python -m tacotron_tpu_torch.studies.convergence_study``
+   twice on one ``--work`` (a 48-a-speaker melody corpus, the preset's
+   batch 32, bf16): ``--wall_budget_s 30``, then 10 steps more, which
+   resume from the first call's checkpoint; both exit 0 and write the
+   report's keys; the study's held-out evaluation run in this process on
+   that run, each call's K1/K2 launches held to the counts its
+   iterations, ``_budget`` and ``fused_supported`` give, the kernel that
+   ran held against its plain version at each chunk's shape; and
+   ``python -m tacotron_tpu_torch.studies.mulaw_quality`` on the run;
+   (c) ``token_tone_accuracy`` of ``melody_wav`` itself reads 1.0 with a
+   wrong-token rate of 0 for every held-out sentence, both speakers,
+   ``melody`` and ``melody_var``.  A ``[convergence]`` line sums it up;
+   (b)'s launches are the kernels' ``launches_convergence``.
+13. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -2574,6 +2594,8 @@ def bf16_config(cfg):
 BF16_SHARE, BF16_ALIGN = 0.03, 1e-2
 #: and of the bf16 train step (tests/test_torch_bf16.py)
 BF16_LOSS_REL, BF16_GRAD_NORM_REL = 1e-2, 2e-2
+#: phase 11 (c)'s eager bf16 run (30 until phase 12 came; cut for time)
+BF16_STEPS = 20
 
 
 def bf16_forward(dev, main: dict, dirs) -> dict:
@@ -2736,8 +2758,8 @@ def bf16_step_card_vs_cpu(dev, dirs) -> dict:
 
 
 def bf16_training(dev, trained: dict, graphs: dict, tmp: str) -> dict:
-    """(c) 30 bf16 steps at batch 16 on phase 6's corpus, config and seed
-    (the loss falls), then eager and replayed steps on the same 4 batches
+    """(c) ``BF16_STEPS`` bf16 steps at batch 16 on phase 6's corpus, config
+    and seed (the loss falls), then eager and replayed steps on the same 4 batches
     beside phase 6's and 8's float32 figures, and at NCCL world size 1 the
     data-parallel bf16 step equal to the plain bf16 step over 2 steps."""
     import os
@@ -2755,19 +2777,20 @@ def bf16_training(dev, trained: dict, graphs: dict, tmp: str) -> dict:
     cfg = bf16_config(trained["config"])
     run = os.path.join(tmp, "run_bf16")
     t0 = time.perf_counter()
-    state = train(run, dirs, cfg, num_steps=30, device=dev)
+    state = train(run, dirs, cfg, num_steps=BF16_STEPS, device=dev)
     out["run_s"] = time.perf_counter() - t0
     losses = [r["loss"] for r in read_metrics(
         os.path.join(run, "metrics.jsonl"), "train")]
-    require(len(losses) == 30 and np.isfinite(losses).all(),
+    require(len(losses) == BF16_STEPS and np.isfinite(losses).all(),
             f"(c) bf16 run losses {losses}")
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[25:]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     require(last < first, f"(c) bf16 loss did not fall: {first} -> {last}")
     f32_losses = [r["loss"] for r in read_metrics(
         os.path.join(trained["run_dir"], "metrics.jsonl"), "train")]
     out.update(loss_first5=first, loss_last5=last,
                f32_first5=float(np.mean(f32_losses[:5])),
-               f32_last5=float(np.mean(f32_losses[25:])))
+               f32_last5=float(np.mean(
+                   f32_losses[BF16_STEPS - 5:BF16_STEPS])))
 
     batches = DataFeeder(dirs, cfg, seed=5).batches()
     host = [next(batches) for _ in range(5)]
@@ -2779,8 +2802,9 @@ def bf16_training(dev, trained: dict, graphs: dict, tmp: str) -> dict:
     replay = time_train_steps(state, step_fn, iter(host), 1, 4)
     out.update(eager=eager, replay=replay, graphs=n, capture_s=capture_s)
     f6, f8 = trained["timing"], graphs["train"]
-    log(f"[bf16] (c) 30 bf16 steps at batch 16 in {out['run_s']:.1f} s: "
-        f"loss {first:.4f} (steps 1-5) -> {last:.4f} (26-30) (f32 phase 6 "
+    log(f"[bf16] (c) {BF16_STEPS} bf16 steps at batch 16 in "
+        f"{out['run_s']:.1f} s: loss {first:.4f} (steps 1-5) -> {last:.4f} "
+        f"(the last 5) (f32 phase 6, the same steps "
         f"{out['f32_first5']:.4f} -> {out['f32_last5']:.4f}); the same 4 "
         f"batches: eager {eager['sec_per_step']:.4f} s a step, "
         f"{eager['target_frames_per_s']:.1f} frames/s, peak "
@@ -2889,6 +2913,300 @@ def bf16_phase(dev, main: dict, trained: dict, graphs: dict,
     return out
 
 
+# ----------------------------------------------------------- convergence
+
+#: the keys of the convergence report (scripts/convergence_study.py)
+STUDY_REPORT_KEYS = {"steps", "train_seconds", "attention_type",
+                     "corpus_style", "config", "heldout_texts",
+                     "speaker_eval", "dominant_f0", "token_tone_accuracy",
+                     "device"}
+
+
+def checkpoint_saves(dev, trained: dict, tmp: str) -> dict:
+    """(a) Checkpoint saves at full width (phase 6's float32 config, batch
+    16, Adam moments beside the parameters): how long ``save`` blocks,
+    asynchronous against ``async_save=False`` (median of 3); how long an
+    asynchronous write takes to become durable; the replayed train step
+    alone and with an asynchronous write in flight; and a checkpoint saved
+    while replayed steps go on updating the state in place, read back
+    bit-equal to the state at its step."""
+    import os
+
+    from tacotron_tpu_torch.data import DataFeeder
+    from tacotron_tpu_torch.train.checkpoint import CheckpointManager
+    from tacotron_tpu_torch.train.state import create_train_state
+    from tacotron_tpu_torch.train.step import batch_to_device, make_train_step
+
+    cfg = trained["config"]
+    state = create_train_state(cfg, seed=0, device=dev)
+    batches = DataFeeder(trained["corpus"], cfg, seed=5).batches()
+    host = [next(batches) for _ in range(4)]
+    step_fn = make_train_step(cfg)
+    step_fn.prewarm(state, [batch_to_device(h, dev) for h in host])
+    on_card = [batch_to_device(h, dev) for h in host]
+
+    def step(i: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, on_card[i % len(on_card)], 0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for i in range(3):
+        step(i)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 state.parameters() + state.opt.m + state.opt.v)
+    out = {"state_mb": nbytes / 1e6}
+    blocks = {}
+    for name, async_save in (("async", True), ("sync", False)):
+        mgr = CheckpointManager(os.path.join(tmp, f"ckpt_{name}"), cfg,
+                                max_to_keep=2, async_save=async_save)
+        walls, durable = [], []
+        for _ in range(3):
+            step(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(state)
+            walls.append(time.perf_counter() - t0)
+            mgr.wait()
+            durable.append(time.perf_counter() - t0)
+        mgr.close()
+        blocks[name] = walls
+        out[f"{name}_block_s"] = statistics.median(walls)
+        out[f"{name}_durable_s"] = statistics.median(durable)
+
+    # the replayed step alone, then with a write in flight
+    alone = [step(i) for i in range(6)]
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt_overlap"), cfg,
+                            max_to_keep=2)
+    snap_step = state.step
+    want = {k: v.detach().cpu().clone()
+            for k, v in state.model.state_dict().items()}
+    want_m = [t.detach().cpu().clone() for t in state.opt.m + state.opt.v]
+    mgr.save(state)
+    overlapped = []
+    while any(not f.done() for f in mgr._pending) or not overlapped:
+        overlapped.append(step(len(overlapped)))
+    mgr.wait()
+    require(state.step > snap_step, "(a) no step ran during the write")
+    fresh = create_train_state(cfg, seed=1, device=dev)
+    fresh = mgr.restore(fresh, step=snap_step)
+    mgr.close()
+    require(fresh.step == snap_step, f"(a) restored step {fresh.step}")
+    for k, v in fresh.model.state_dict().items():
+        require(torch.equal(v.cpu(), want[k]),
+                f"(a) {k} differs from the state at step {snap_step}")
+    for a, b in zip(fresh.opt.m + fresh.opt.v, want_m):
+        require(torch.equal(a.cpu(), b),
+                f"(a) an Adam moment differs from step {snap_step}")
+    out.update(step_alone_s=statistics.median(alone),
+               step_overlapped_s=statistics.median(overlapped),
+               overlapped_steps=len(overlapped),
+               steps_after_save=state.step - snap_step)
+    log(f"[convergence] (a) checkpoint of {out['state_mb']:.1f} MB "
+        f"(parameters and Adam moments, float32): save blocks "
+        f"{out['async_block_s']:.4f} s async (median of 3; "
+        f"{[round(w, 4) for w in blocks['async']]}) against "
+        f"{out['sync_block_s']:.4f} s with async_save=False "
+        f"({[round(w, 4) for w in blocks['sync']]}); durable after "
+        f"{out['async_durable_s']:.4f} s async; the replayed step "
+        f"{out['step_alone_s']:.4f} s alone, {out['step_overlapped_s']:.4f} "
+        f"s with the write in flight ({len(overlapped)} steps); the "
+        f"checkpoint of step {snap_step}, saved while {out['steps_after_save']}"
+        f" replayed steps updated the state in place, reads back bit-equal")
+    return out
+
+
+def study_cli(work: str, art: str, *args) -> tuple:
+    """``python -m tacotron_tpu_torch.studies.convergence_study`` as a user
+    runs it, on the card: (report, wall seconds, stdout)."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tacotron_tpu_torch.studies.convergence_study",
+         "--work", work, "--artifacts", art, "--utterances", "48", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"(b) the study {args} exited "
+                                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(os.path.join(art, "convergence_report.json"),
+              encoding="utf-8") as fh:
+        return json.load(fh), wall, proc.stdout
+
+
+def study_launches(dev, run: str, heldout, rng) -> dict:
+    """(b) The study's held-out evaluation in this process on the run the
+    CLI trained, each ``synthesize`` call's K1/K2 launches held to the
+    counts its iterations, ``_budget`` and ``fused_supported`` give, and
+    the kernel that ran against its plain version at each chunk's
+    shape."""
+    from tacotron_tpu_torch.ops.kernels.gl_fused import fused_supported
+    from tacotron_tpu_torch.studies.convergence_study import evaluate
+    from tacotron_tpu_torch.synth import Synthesizer
+    from tacotron_tpu_torch.synth.synthesizer import trim_silence_db
+    from tacotron_tpu_torch.text import text_to_sequence
+
+    synth = Synthesizer(device=dev).load(run)
+    audio, r = synth.config.audio, synth.config.model.reduction_factor
+    calls = []
+    inner = synth.synthesize
+
+    def counted(**kw):
+        # the waveforms are held at the exact lengths of their frame ends,
+        # then given the dB trim that synthesize applies by default
+        trim = kw.pop("librosa_trim", True)
+        zero_counts()
+        res = inner(**kw, librosa_trim=False)
+        torch.cuda.synchronize()
+        calls.append((kw, read_counts(), res))
+        return dict(res, wavs=[trim_silence_db(w) if trim else w
+                               for w in res["wavs"]])
+
+    synth.synthesize = counted
+    t0 = time.perf_counter()
+    report, f0, tones = evaluate(synth, heldout, 2, False)
+    wall = time.perf_counter() - t0
+    del synth.synthesize
+    out = {"wall_s": wall, "calls": []}
+    for kw, counts, res in calls:
+        seqs = [text_to_sequence(t, synth.cleaner_names(),
+                                 symbol_set=synth.config.data.symbol_set)
+                for t in kw["texts"]]
+        steps = synth._budget([len(q) for q in seqs], kw.get("max_steps"),
+                              32)[1]
+        fast = kw.get("fast_vocoder", False)
+        iters = synth.FAST_GRIFFIN_LIM_ITERS if fast else \
+            audio.griffin_lim_iters
+        fused = fused_supported(audio, steps * r)
+        chunks = synth._chunks(len(kw["texts"]))
+        want = {"K1": K1_PER_ITERATION * iters * len(chunks) if fused else 0,
+                "K2": 0 if fused else (iters + 1) * len(chunks), "K3": 0}
+        require(counts == want, f"(b) evaluation call ({len(seqs)} texts, "
+                f"fast {fast}): launches {counts}, derived {want} ({steps} "
+                f"steps, fused {fused})")
+        if kw.get("attention_trim", True):
+            check_waveforms(res, audio.hop_length, "(b) evaluation")
+        else:   # untrimmed: every frame's samples, (frames - 1) * hop
+            check_waveforms(dict(res, ends=[steps * r - 1] * len(seqs)),
+                            audio.hop_length, "(b) evaluation, untrimmed")
+        errs = {nb: (check_k1_at if fused else check_k2_at)(
+                    dev, rng, audio, nb, steps * r)
+                for nb in sorted({nb for _, _, nb in chunks})}
+        out["calls"].append(dict(n=len(seqs), fast=fast, steps=steps,
+                                 fused=fused, launches=counts,
+                                 kernel_err=errs))
+    out["launches"] = {k: sum(c["launches"][k] for c in out["calls"])
+                       for k in ("K1", "K2")}
+    out["tone_accuracy"] = {s: v["mean_accuracy"] for s, v in tones.items()}
+    return out
+
+
+def convergence_phase(dev, trained: dict, tmp: str) -> dict:
+    """Phase 12 (a)-(c) of the module docstring."""
+    import os
+
+    from tacotron_tpu_torch.studies import make_synthetic_corpus as corpus
+    from tacotron_tpu_torch.studies.convergence_study import \
+        token_tone_accuracy
+    from tacotron_tpu_torch.text import text_to_sequence
+    from tacotron_tpu_torch.train.checkpoint import checkpoint_steps
+    from tacotron_tpu_torch.utils import card_line, read_metrics
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    out = {"saves": checkpoint_saves(dev, trained, tmp)}
+
+    # (b) the study CLI twice on one --work: the second call resumes
+    work = os.path.join(tmp, "study")
+    first, wall1, _ = study_cli(work, os.path.join(tmp, "study_art1"),
+                                "--steps", "100000", "--wall_budget_s", "30")
+    n1 = first["steps"]
+    require(n1 > 0, f"(b) the first call trained {n1} steps")
+    second, wall2, stdout = study_cli(work, os.path.join(tmp, "study_art2"),
+                                      "--steps", str(n1 + 10))
+    run = os.path.join(work, "run")
+    with open(os.path.join(run, "train.log"), encoding="utf-8") as fh:
+        text = fh.read()
+    logged = [r["step"] for r in read_metrics(
+        os.path.join(run, "metrics.jsonl"), "train")]
+    require(second["steps"] == n1 + 10
+            and f"resumed from {run} at step {n1}" in text
+            and checkpoint_steps(run)[-2:] == [n1, n1 + 10]
+            and logged == sorted(set(logged)) and logged[-1] <= n1 + 10,
+            f"(b) the second call did not resume from step {n1}: report "
+            f"steps {second['steps']}, checkpoints {checkpoint_steps(run)}, "
+            f"logged steps {logged[-5:]}")
+    for report in (first, second):
+        require(set(report) == STUDY_REPORT_KEYS,
+                f"(b) report keys {sorted(report)}")
+        require(report["device"] == card_line(),
+                f"(b) report device {report['device']!r}")
+        require(report["config"]["compute_dtype"] == "bfloat16"
+                and report["config"]["batch_size"] == 32,
+                f"(b) report config {report['config']}")
+        check_report(report["speaker_eval"], [0, 1], 8, "(b)")
+    require(os.path.exists(os.path.join(tmp, "study_art2",
+                                         "loss_curve.json")),
+            "(b) no loss_curve.json")
+    with open(os.path.join(work, "corpus", "heldout.json"),
+              encoding="utf-8") as fh:
+        heldout = json.load(fh)
+    out["study"] = dict(first_steps=n1, first_s=wall1, second_s=wall2,
+                        train_s=first["train_seconds"],
+                        steps_per_s=n1 / max(first["train_seconds"], 1e-9),
+                        eval=study_launches(dev, run, heldout, rng))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tacotron_tpu_torch.studies.mulaw_quality",
+         "--load_path", run, "--texts_json",
+         os.path.join(work, "corpus", "heldout.json")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    require(proc.returncode == 0, f"(b) mulaw_quality exited "
+                                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+    mulaw = json.loads(proc.stdout)
+    require(np.isfinite([mulaw["lsd_db_mean"], mulaw["snr_db_mean"]]).all(),
+            f"(b) mulaw report {mulaw}")
+    out["mulaw"] = dict(mulaw, wall_s=time.perf_counter() - t0)
+    ev = out["study"]["eval"]
+    log(f"[convergence] (b) the study CLI on a 48-a-speaker melody corpus, "
+        f"batch 32, bf16: call 1 (--wall_budget_s 30) {n1} steps in "
+        f"{first['train_seconds']:.1f} s of training "
+        f"({out['study']['steps_per_s']:.2f} steps/s), exit 0 in "
+        f"{wall1:.1f} s; call 2 resumed at step {n1} to {n1 + 10}, exit 0 "
+        f"in {wall2:.1f} s; held-out evaluation in process "
+        f"{ev['wall_s']:.2f} s: "
+        + "; ".join(f"{c['n']} texts, {c['steps']} steps, fast "
+                    f"{c['fast']}, fused {c['fused']}: launches "
+                    f"{c['launches']}, {'K1 rel' if c['fused'] else 'K2 abs'}"
+                    f" error {', '.join(f'B={b} {e:.3e}' for b, e in c['kernel_err'].items())}"
+                    for c in ev["calls"])
+        + f"; tone accuracy at step {n1 + 10} {ev['tone_accuracy']}; "
+        f"mulaw_quality LSD {mulaw['lsd_db_mean']} dB, SNR "
+        f"{mulaw['snr_db_mean']} dB")
+
+    # (c) the instrument reads the ground truth as exactly right
+    sr = trained["config"].audio.sample_rate
+    for style in ("melody", "melody_var"):
+        var = style == "melody_var"
+        for text in heldout:
+            tokens = text_to_sequence(text, ["korean_cleaners"])
+            for spk in (0, 1):
+                acc = token_tone_accuracy(
+                    corpus.melody_wav(tokens, spk, sr, variable_rate=var),
+                    text, spk, sr, variable_rate=var)
+                require(acc["accuracy"] == 1.0
+                        and acc["wrong_token_rate"] == 0.0,
+                        f"(c) {style} speaker {spk} {text!r}: {acc}")
+    log(f"[convergence] (c) token_tone_accuracy of melody_wav itself: 1.0, "
+        f"wrong-token rate 0, for {len(heldout)} held-out sentences x 2 "
+        f"speakers, melody and melody_var")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2950,6 +3268,7 @@ def main() -> int:
         par = parallel_phase(dev, main, trained, tmp)
         corpus = corpus_phase(dev, tmp)
         bf16 = bf16_phase(dev, main, trained, graphs, tmp)
+        conv = convergence_phase(dev, trained, tmp)
     for k, name in zip(kernels, ("K1", "K2", "K3")):
         k["launches_serving"] = {step: v[name]
                                  for step, v in serve["launches"].items()}
@@ -3043,6 +3362,20 @@ def main() -> int:
         f"{tr['loss_first5']:.4f} -> {tr['loss_last5']:.4f}; --preset tpu "
         f"{bf16['cli']['wall_s']:.1f} s; phase 11 wall time "
         f"{bf16['wall_s']:.1f} s on {card}")
+    for k, name in zip(kernels, ("K1", "K2")):
+        # phase 12 (b): the study's held-out evaluation
+        k["launches_convergence"] = conv["study"]["eval"]["launches"][name]
+    sv, st = conv["saves"], conv["study"]
+    log(f"[convergence] save blocks {sv['async_block_s']:.4f} s async, "
+        f"{sv['sync_block_s']:.4f} s sync, durable {sv['async_durable_s']:.4f}"
+        f" s ({sv['state_mb']:.1f} MB); replayed step "
+        f"{sv['step_alone_s']:.4f} s alone, {sv['step_overlapped_s']:.4f} s "
+        f"beside a write; study {st['first_steps']} steps in "
+        f"{st['train_s']:.1f} s ({st['steps_per_s']:.2f} steps/s), resumed; "
+        f"evaluation launches {st['eval']['launches']}; mulaw LSD "
+        f"{conv['mulaw']['lsd_db_mean']} dB, SNR "
+        f"{conv['mulaw']['snr_db_mean']} dB; phase 12 wall time "
+        f"{conv['wall_s']:.1f} s on {card}")
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")

@@ -71,7 +71,9 @@ def cmd_import(args) -> int:
               f"--config; run the 'report' subcommand to see the residue\n"
               f"{e}", file=sys.stderr)
         return 1
-    CheckpointManager(args.run_dir, config).save(state)
+    mgr = CheckpointManager(args.run_dir, config)
+    mgr.save(state)
+    mgr.close()
     n_params = sum(1 for _ in state.model.parameters())
     print(f"[*] imported {args.prefix} -> {args.run_dir} "
           f"(step 0, {n_params} parameter tensors)")

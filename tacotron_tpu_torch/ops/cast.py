@@ -70,18 +70,33 @@ def compute_copies(params: Iterable[torch.Tensor], dtype: torch.dtype):
         _copies.table = previous
 
 
+def add_bias(y: torch.Tensor, bias: Optional[torch.Tensor],
+             shape=(-1,)) -> torch.Tensor:
+    """``y + bias`` (``bias`` reshaped to ``shape``) in ``y``'s dtype."""
+    return y if bias is None else y + cast(bias, y.dtype).reshape(shape)
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``F.linear`` in ``x``'s dtype."""
-    return F.linear(x, cast(weight, x.dtype),
-                    None if bias is None else cast(bias, x.dtype))
+    """``F.linear`` in ``x``'s dtype.  Below float32 the product is
+    rounded to ``x``'s dtype before the bias is added, as flax's ``Dense``
+    rounds its ``dot_general`` and then adds (in JAX's compiled and eager
+    programs alike); a fused bias would round once."""
+    w = cast(weight, x.dtype)
+    if x.dtype == torch.float32:
+        return F.linear(x, w, None if bias is None else cast(bias, x.dtype))
+    return add_bias(F.linear(x, w), bias)
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``F.conv1d`` ([N, C, T]) in ``x``'s dtype."""
-    return F.conv1d(x, cast(weight, x.dtype),
-                    None if bias is None else cast(bias, x.dtype))
+    """``F.conv1d`` ([N, C, T]) in ``x``'s dtype; below float32 the bias
+    is added after the product's rounding, as in :func:`linear` (the JAX
+    convolutions add it after ``conv_general_dilated``)."""
+    w = cast(weight, x.dtype)
+    if x.dtype == torch.float32:
+        return F.conv1d(x, w, None if bias is None else cast(bias, x.dtype))
+    return add_bias(F.conv1d(x, w), bias, (-1, 1))
 
 
 class Linear(nn.Linear):

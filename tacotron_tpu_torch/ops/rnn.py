@@ -13,9 +13,11 @@ carry halves.
 
 The carry is kept in the compute dtype (the carry's dtype decides, as in
 JAX).  In bfloat16 the split products are taken in float32 from the
-bfloat16 operands and their sum (bias included) is rounded to bfloat16
-once a step, where JAX's one product over ``[x, h]`` rounds once before
-its bias add; the step's elementwise math then runs in bfloat16.
+bfloat16 operands and their sum is rounded to bfloat16 once a step, as
+JAX's one product over ``[x, h]`` is rounded; the bias is added after that
+rounding, in bfloat16, as JAX's ``Dense`` adds it; the step's elementwise
+math then runs in bfloat16.  In float32 the biases ride in the input
+projections.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .cast import Linear, cast
+from .cast import Linear, add_bias, cast
 
 
 class GRUCell(nn.Module):
@@ -50,16 +52,17 @@ class GRUCell(nn.Module):
     def input_projections(self, xs: torch.Tensor,
                           dtype: Optional[torch.dtype] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Input halves of both products, with the biases, for a whole
-        sequence [N, T, D] in float32, from the operands in ``dtype`` (the
-        carry's; default ``xs``'s)."""
+        """Input halves of both products for a whole sequence [N, T, D] in
+        float32, from the operands in ``dtype`` (the carry's; default
+        ``xs``'s); in float32 with the biases (below it
+        :meth:`step_projected` adds them after the rounding)."""
         d = self.input_size
         dtype = dtype or xs.dtype
 
         def half(layer):
             return F.linear(xs.to(dtype).float(),
                             cast(layer.weight, dtype)[:, :d].float(),
-                            cast(layer.bias, dtype).float())
+                            layer.bias if dtype == torch.float32 else None)
 
         return half(self.gates), half(self.candidate)
 
@@ -80,9 +83,14 @@ class GRUCell(nn.Module):
         :meth:`carry_weights` (made here when not given)."""
         dtype = carry.dtype
         wg, wc = weights or self.carry_weights(dtype)
-        gates = torch.sigmoid((gx + carry.float() @ wg).to(dtype))
+        bg = bc = None
+        if dtype != torch.float32:
+            bg, bc = self.gates.bias, self.candidate.bias
+        gates = torch.sigmoid(add_bias((gx + carry.float() @ wg).to(dtype),
+                                       bg))
         r, u = gates.chunk(2, dim=-1)
-        c = torch.tanh((cx + (r * carry).float() @ wc).to(dtype))
+        c = torch.tanh(add_bias((cx + (r * carry).float() @ wc).to(dtype),
+                                bc))
         return u * carry + (1.0 - u) * c
 
 

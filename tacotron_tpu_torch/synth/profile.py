@@ -30,11 +30,12 @@ import argparse
 import dataclasses
 import json
 import statistics
-import subprocess
 import time
 
 import numpy as np
 import torch
+
+from ..utils.misc import card_line
 
 SENTENCES = ["안녕하세요. 만나서 반갑습니다.",
              "오늘 날씨가 참 좋네요.",
@@ -260,10 +261,7 @@ def main(argv=None) -> None:
         out = profile_rung(synth, rung, args.repeats)
         print(json.dumps(out), flush=True)
         results.append(out)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     if args.out:
         with open(args.out, "w") as fh:

@@ -115,6 +115,10 @@ def train(run_dir: str, data_paths: Sequence[str], config: Config,
     on the run's own state, which it leaves as it was; a batch of a
     captured shape then replays its graph, any other runs eagerly.
 
+    Checkpoints are saved asynchronously (``train/checkpoint.py``): the
+    loop blocks only for the state's copy to the host, and the manager is
+    closed, every write durable, before ``train`` returns or raises.
+
     ``max_seconds`` stops the loop cleanly once that much wall time has
     passed (the final state is checkpointed).  ``profile_dir`` records a
     ``torch.profiler`` trace of steps ``profile_steps`` there
@@ -267,10 +271,14 @@ def train(run_dir: str, data_paths: Sequence[str], config: Config,
                                  tb_logdir=run_dir) if primary else None)
     profiler = None
 
-    def save() -> None:
-        """Rank 0 writes the checkpoint; every rank waits for it."""
+    def save(final: bool = False) -> None:
+        """Rank 0 saves the checkpoint (a host copy, written on the
+        manager's thread; the final save waits for it); every rank waits
+        for that."""
         if primary:
             mgr.save(state)
+            if final:
+                mgr.wait()
         if shard is not None:
             dist.barrier(group=plan.host_group or plan.mesh_group)
 
@@ -387,9 +395,12 @@ def train(run_dir: str, data_paths: Sequence[str], config: Config,
                 f"checkpointed (last checkpoint: step {saved_step})")
         elif not diverged and saved_step != state.step:
             if sys.exc_info()[0] is None:
-                save()
+                save(final=True)
             elif primary:   # no barrier: another rank may be gone
                 mgr.save(state)
+        if mgr is not None:
+            # no write is left pending, whatever ended the run
+            mgr.close()
     return state
 
 

@@ -39,7 +39,6 @@ import argparse
 import dataclasses
 import json
 import statistics
-import subprocess
 import tempfile
 import time
 
@@ -49,6 +48,7 @@ from ..config import Config
 from ..data.feeder import DataFeeder
 from ..data.synthetic import write_synthetic_corpus
 from ..synth.profile import TraceWindow
+from ..utils.misc import card_line
 from .optim import Optimizer
 from .roofline import H100_FP32_PEAK_TFLOPS, forward_flops, mfu
 from .state import create_train_state
@@ -227,10 +227,7 @@ def main(argv=None) -> None:
         raise SystemExit("train.profile needs a CUDA card")
     result = profile_train_step(torch.device("cuda"), args.seed,
                                 args.repeats)
-    result["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+    result["card"] = card_line()
     print(json.dumps(result), flush=True)
     if args.out:
         with open(args.out, "w") as fh:

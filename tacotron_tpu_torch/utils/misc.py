@@ -1,6 +1,7 @@
 """Misc helpers: moving-average window, run-dir naming, parallel map,
-boolean flags, git provenance.  A copy of the JAX package's
-``utils/misc.py``."""
+boolean flags, git provenance: a copy of the JAX package's
+``utils/misc.py``; and the card's name and power limit (:func:`card_line`),
+which the port writes beside every number it measures on a card."""
 
 from __future__ import annotations
 
@@ -91,3 +92,14 @@ def get_git_diff() -> str:
             ["git", "diff"], stderr=subprocess.DEVNULL).decode()
     except (OSError, subprocess.CalledProcessError):
         return ""
+
+
+def card_line(index: int = 0) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (e.g.
+    ``NVIDIA H100 80GB HBM3, 700.00 W``), for card ``index``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout
+    return out.strip().splitlines()[index]

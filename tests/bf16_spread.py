@@ -4,7 +4,9 @@ step cases.  Prints, per case, the smallest per-leaf cosine of the two
 steps' gradients over the leaves that carry at least 1e-3 of the global
 norm, and the largest leaf difference over the global norm: the numbers
 ``LEAF_COSINE`` and ``LEAF_DIFF`` of that test are set at twice this
-spread.  The gradients are read through Adam's first moments, as the test
+spread; and the smallest cosine over the encoder CBHG's front (its conv
+bank, ``bank_bn`` and ``proj_1``), where ``FRONT_COSINE`` is set at twice
+the spread.  The gradients are read through Adam's first moments, as the test
 reads them.  Takes a few minutes on the CPU (the eager step runs op by
 op):
 
@@ -22,7 +24,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from test_torch_bf16 import _leaf_stats, bf16_step_pair  # noqa: E402
+from test_torch_bf16 import FRONT, _leaf_stats, bf16_step_pair  # noqa: E402
 
 
 def main() -> None:
@@ -32,9 +34,12 @@ def main() -> None:
         cosines, diffs = _leaf_stats(eager_m, jit_m)
         worst = min(cosines, key=cosines.get)
         widest = max(diffs, key=diffs.get)
+        front = {k: v for k, v in cosines.items() if k.startswith(FRONT)}
+        low = min(front, key=front.get)
         print(f"guided={guided}: min cosine {cosines[worst]:.4f} ({worst}), "
               f"max leaf difference {diffs[widest]:.5f} of the norm "
-              f"({widest})", flush=True)
+              f"({widest}); encoder front min cosine {front[low]:.5f} "
+              f"({low})", flush=True)
 
 
 if __name__ == "__main__":

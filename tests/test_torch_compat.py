@@ -286,7 +286,9 @@ def test_compat_cli_roundtrip(tmp_path):
     run_a = str(tmp_path / "run_a")
     state = create_train_state(cfg, seed=3, device="cpu")
     state.step = 7
-    CheckpointManager(run_a, cfg).save(state)
+    mgr = CheckpointManager(run_a, cfg)
+    mgr.save(state)
+    mgr.close()
 
     prefix = str(tmp_path / "tf1" / "model.ckpt-777")
     assert compat_main(["export", run_a, prefix, "--device", "cpu"]) == 0
@@ -391,7 +393,9 @@ def test_port_export_reads_back_through_jax(tmp_path):
     state = create_train_state(tcfg, device="cpu")
     state.model.load_state_dict(P.from_flax(variables))
     run = str(tmp_path / "run")
-    CheckpointManager(run, tcfg).save(state)
+    mgr = CheckpointManager(run, tcfg)
+    mgr.save(state)
+    mgr.close()
     prefix = str(tmp_path / "tf1" / "model.ckpt-1")
     assert compat_main(["export", run, prefix, "--device", "cpu"]) == 0
     params, stats, unmatched = jtf1.import_tf1_checkpoint(prefix, jcfg)

@@ -49,6 +49,7 @@ def run_dir(tmp_path_factory):
         state = create_train_state(cfg, seed=seed, device="cpu")
         state.step = step
         mgr.save(state)
+    mgr.close()
     return run
 
 

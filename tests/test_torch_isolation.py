@@ -24,6 +24,9 @@ bad = sorted(m for m in sys.modules
                                     "tacotron_tpu"))
 print(len(names))
 assert not bad, bad
+assert {f"tacotron_tpu_torch.studies.{m}" for m in (
+    "make_synthetic_corpus", "convergence_study", "mulaw_quality")
+    } <= set(names), names
 """
 
 # an import of JAX, flax or optax, or any mention of the JAX package as a

@@ -318,7 +318,9 @@ def test_checkpoint_written_once_per_step(corpus, tmp_path, monkeypatch):
     assert saved == [2]
     assert train(run, corpus, cfg, num_steps=2, device="cpu").step == 2
     assert saved == [2]
-    CheckpointManager(run, cfg).save(state)
+    mgr = CheckpointManager(run, cfg)
+    mgr.save(state)
+    mgr.close()
     assert sorted(os.listdir(os.path.join(run, "checkpoints"))) == ["2"]
 
 
