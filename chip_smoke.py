@@ -85,10 +85,13 @@
    replays out of capture order, equal to eager; (c) the app's 21
    programs, then phase 7 (e)'s requests under a trace (K1 on the short
    ones, K2 on the long POST), replayed; (d) ``train(..., prewarm=True)``
-   for 20 steps and a resume to 30 on phase 6's corpus and seed: every
-   step of a bucket shape replays its graph once, per-step losses and
-   final parameters of the nearer eager run (phase 6's or one more)
-   within twice the spread of the two or 1e-5, a falling loss, and eager
+   for 10 steps and a resume to 15 on phase 6's corpus and seed: every
+   step of a bucket shape replays its graph once; against one more eager
+   run of the same depth and resume point, every step's loss and the
+   parameters at step 15, and against phase 6's run the first 10 steps'
+   losses and the parameters at step 10, each within twice the spread of
+   the two eager runs over their common first 10 steps or 1e-5; a falling
+   loss; and eager
    against replayed steps on the same 4 batches (step time, target
    frames/s, peak memory) with the idle share of steps 11-15.  A
    ``[graphs]`` line sums it up.
@@ -147,7 +150,7 @@
    (bit-equal to eager, the same launches in the replay's trace), walls,
    device busy time and idle share beside the float32 figures; (c) one
    bf16 step at batch 4 on the card against the CPU (loss rel 1e-2,
-   gradient norm rel 2e-2), 20 bf16 steps at batch 16 (the loss falls),
+   gradient norm rel 2e-2), 10 bf16 steps at batch 16 (the loss falls),
    eager and replayed steps on the same 4 batches (step time, target
    frames/s, peak memory) beside phase 6's and 8's, and at NCCL world size
    1 the data-parallel bf16 step equal to the plain one over 2 steps; (d)
@@ -166,7 +169,7 @@
    steps update the state in place read back bit-equal to the state at
    its step; (b) ``python -m tacotron_tpu_torch.studies.convergence_study``
    twice on one ``--work`` (a 48-a-speaker melody corpus, the preset's
-   batch 32, bf16): ``--wall_budget_s 30``, then 10 steps more, which
+   batch 32, bf16): ``--wall_budget_s 15``, then 10 steps more, which
    resume from the first call's checkpoint; both exit 0 and write the
    report's keys; the study's held-out evaluation run in this process on
    that run, each call's K1/K2 launches held to the counts its
@@ -177,7 +180,28 @@
    wrong-token rate of 0 for every held-out sentence, both speakers,
    ``melody`` and ``melody_var``.  A ``[convergence]`` line sums it up;
    (b)'s launches are the kernels' ``launches_convergence``.
-13. Prints the kernels line, the card line, and last the result line
+13. Studies (``studies/serving_load.py``, ``synth_sweep.py``,
+   ``bf16_study.py``, ``batch_study.py``) and K4's last input form: (a)
+   K4 with bf16 weights, biases and mask (as JAX's kernel takes them) at
+   the forward direction of phase 5's encoder (H=128) and post-net
+   (H=256) BiGRU inputs, counted (2 launches), on the cluster route, with
+   no copy in the wrapper (no ``copy`` among its aten operations), the
+   output within 1e-4 of the plain version on the same bf16 tensors and
+   the bf16 weight gradients within 2^-7 of the largest, timed beside
+   float32 K4 on the same inputs; (b) ``run_load_test`` on phase 4's
+   synthesizer, prewarmed, levels 1 and 4 with 4 requests, ``max_batch``
+   4 and 1: every call replayed, no coalescing without concurrency, and
+   the replays' K1/K2 launches in a trace of the run held to the count the
+   calls' texts give (the load texts' 200-step budget: K2), the kernel
+   against its plain version at each chunk's shape; (c) one ``pallas``
+   point of the sweep at batch 16 (30 momentum iterations): K3 30 and K2
+   31 launches in its eager call, both kernels against their plain
+   versions at its shapes, replay and eager times; (d) ``python -m
+   tacotron_tpu_torch.studies.bf16_study --steps 10`` and ``batch_study
+   --samples 640`` (10-40 steps an arm), started together, exit 0, the
+   reports' device line and keys.  A ``[studies]`` line sums it up; the
+   kernels line gains K4's bf16-weight form and ``launches_studies``.
+14. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -575,7 +599,9 @@ def check_edge_shapes(dev, rng) -> int:
     (the 2- and 1-sample paths of ``ola_plan``); GRUs with T = 1, N = 1,
     lengths of 0 and T, H not a multiple of 32, N = 17 (five clusters), and
     H = 512 and 513 on the two sides of ``cluster_plan``'s boundary between
-    the cluster and the streaming route."""
+    the cluster and the streaming route, each in float32 and with bf16
+    weights, biases and mask (at H >= 512 also bf16 gate or candidate
+    operands alone)."""
     from tacotron_tpu_torch.config import AudioConfig
     from tacotron_tpu_torch.ops.kernels import griffin_lim, gru
 
@@ -610,17 +636,28 @@ def check_edge_shapes(dev, rng) -> int:
                                 (9, 2, 7, 37, None), (17, 17, 24, 40, n17),
                                 (6, 5, 16, 512, [6, 0, 3, 6, 1]),
                                 (6, 3, 16, 513, [6, 2, 0])):
-        args = gru_inputs(dev, rng, T, N, D, H, lengths)
-        got = gru.gru_sequence(*args)
-        want = gru.gru_reference_scan(*args)
-        err = float((got - want).abs().max())
-        plan = gru.cluster_plan(N, H)
-        require(err <= 1e-5, f"K4 at T={T} N={N} D={D} H={H} ({plan}): {err}")
-        if lengths is not None:
-            for i, length in enumerate(lengths):
-                require(bool((got[length:, i] == 0).all()),
-                        f"K4 emits past length {length}")
-        n += 1
+        f32 = gru_inputs(dev, rng, T, N, D, H, lengths)
+        # float32, then the operands JAX's kernel also takes in bf16: all
+        # five, and on both sides of the route boundary the gate or the
+        # candidate operands alone (mixed types)
+        modes = [(), gru.BF16_OPERANDS]
+        if H >= 512:
+            modes += [("wg", "bg"), ("wc", "bc", "mask")]
+        for low in modes:
+            args = list(f32[:2]) + [
+                t.to(torch.bfloat16) if name in low else t
+                for name, t in zip(gru.BF16_OPERANDS, f32[2:])]
+            got = gru.gru_sequence(*args)
+            want = gru.gru_reference_scan(*args)
+            err = float((got - want).abs().max())
+            plan = gru.cluster_plan(N, H)
+            require(err <= 1e-5, f"K4 at T={T} N={N} D={D} H={H} ({plan}), "
+                                 f"bf16 {low}: {err}")
+            if lengths is not None:
+                for i, length in enumerate(lengths):
+                    require(bool((got[length:, i] == 0).all()),
+                            f"K4 emits past length {length}, bf16 {low}")
+            n += 1
     torch.cuda.synchronize()
     return n
 
@@ -728,15 +765,11 @@ def main_path(dev):
     return results
 
 
-def check_k4(dev, synth, rng):
-    """The fused GRU's path: capture the inputs of the encoder CBHG's BiGRU
-    (4 sentences, with the speaker's ``encoder_rnn_init``) and of the
-    post-net's BiGRU (200 frames) in a full-width decode, run both through
-    ``bigru_from_params`` with the launch counter zeroed before and read
-    after, and hold them and the weight gradients against the ``BiGRU``
-    module.  Then time one direction at the post-net and at the encoder
-    shape: whole, its input projection alone, and its latency floor."""
-    from tacotron_tpu_torch.ops.kernels import gru
+def capture_bigru_inputs(dev, synth) -> dict:
+    """{"encoder"/"post-net": (BiGRU module, its inputs, its output)} of
+    the encoder CBHG's BiGRU (4 sentences, with the speaker's
+    ``encoder_rnn_init``) and the post-net's (200 frames) in a full-width
+    50-step decode."""
     from tacotron_tpu_torch.text import text_to_sequence
 
     model = synth.model
@@ -766,7 +799,37 @@ def check_k4(dev, synth, rng):
         h.remove()
     require(captured["encoder"][1][2] is not None,
             "the encoder BiGRU got no initial state")
+    return captured
 
+
+def direction_args(dev, captured: dict, name: str) -> list:
+    """The forward direction of a captured BiGRU as ``gru_sequence``'s
+    float32 arguments: [T, N, D] inputs, state, weights (flax layout),
+    biases and mask."""
+    mod, (xs, lengths, init), _ = captured[name]
+    N, T, D = xs.shape
+    cell = mod.fw
+    mask = (torch.ones((T, N), device=dev) if lengths is None else
+            (torch.arange(T, device=dev)[:, None] < lengths[None]).float())
+    h0 = (torch.zeros((N, cell.features), device=dev) if init is None
+          else init[:, :cell.features].contiguous())
+    return [a.detach() for a in (
+        xs.transpose(0, 1).contiguous(), h0,
+        cell.gates.weight.t().contiguous(), cell.gates.bias,
+        cell.candidate.weight.t().contiguous(), cell.candidate.bias, mask)]
+
+
+def check_k4(dev, synth, rng):
+    """The fused GRU's path: capture the inputs of the encoder CBHG's BiGRU
+    and of the post-net's BiGRU in a full-width decode
+    (:func:`capture_bigru_inputs`), run both through ``bigru_from_params``
+    with the launch counter zeroed before and read after, and hold them and
+    the weight gradients against the ``BiGRU`` module.  Then time one
+    direction at the post-net and at the encoder shape: whole, its input
+    projection alone, and its latency floor."""
+    from tacotron_tpu_torch.ops.kernels import gru
+
+    captured = capture_bigru_inputs(dev, synth)
     gru.gru_sequence.launches = 0
     with torch.no_grad():
         outs = {name: gru.bigru_from_params(mod, *inputs)
@@ -792,25 +855,11 @@ def check_k4(dev, synth, rng):
             f"{max_abs:.3e} (rel {rel:.3e}), weight gradients max rel err "
             f"{grad_errs[name]:.3e}")
 
-    def one_direction(name):
-        mod, (xs, lengths, init), _ = captured[name]
-        N, T, D = xs.shape
-        cell = mod.fw
-        mask = (torch.ones((T, N), device=dev) if lengths is None else
-                (torch.arange(T, device=dev)[:, None]
-                 < lengths[None]).float())
-        h0 = (torch.zeros((N, cell.features), device=dev) if init is None
-              else init[:, :cell.features].contiguous())
-        return (xs.transpose(0, 1).contiguous(), h0,
-                cell.gates.weight.t().contiguous(), cell.gates.bias.detach(),
-                cell.candidate.weight.t().contiguous(),
-                cell.candidate.bias.detach(), mask)
-
     def timings(name):
         """The direction's device times: the kernel (``ms``), the input
         projection alone, the recurrence's schedule with its products
         compiled out (the latency floor), and its plan."""
-        args = [a.detach() for a in one_direction(name)]
+        args = direction_args(dev, captured, name)
         x, h0, wg, bg, wc, bc, mask = args
         gx, cx = gru.gru_input_projection(x, wg, bg, wc, bc)
         plan = gru.cluster_plan(x.shape[1], h0.shape[1])
@@ -1655,19 +1704,26 @@ def serving_graphs(main: dict, tmp: str) -> dict:
     return out
 
 
-def run_losses_and_params(run: str):
-    """Per-step train losses and the last checkpoint's parameters."""
+def run_losses_and_params(run: str, steps=None, at=None):
+    """The train losses of a run's first ``steps`` steps (default all) and
+    the parameters of its checkpoint at step ``at`` (default the
+    newest)."""
     import os
 
     from tacotron_tpu_torch.train.checkpoint import checkpoint_path
     from tacotron_tpu_torch.utils import read_metrics
 
     losses = [r["loss"] for r in read_metrics(
-        os.path.join(run, "metrics.jsonl"), "train")]
-    return losses, dict(np.load(checkpoint_path(run)))
+        os.path.join(run, "metrics.jsonl"), "train")][:steps]
+    return losses, dict(np.load(checkpoint_path(run, at)))
 
 
-def run_spread(a, b, steps: int = 30) -> tuple:
+#: phase 8 (d)'s runs: this many steps, then a resume to GRAPH_STEPS (20
+#: and 30 until phase 13 came; cut for time)
+GRAPH_FIRST, GRAPH_STEPS = 10, 15
+
+
+def run_spread(a, b, steps: int = GRAPH_STEPS) -> tuple:
     """(largest per-step loss difference over the loss, largest parameter
     difference over the largest parameter) between two runs of
     ``steps`` steps."""
@@ -1680,10 +1736,12 @@ def run_spread(a, b, steps: int = 30) -> tuple:
 
 
 def train_graphs(dev, trained: dict, tmp: str) -> dict:
-    """Phase 8 (d): ``train(..., prewarm=True)`` for 20 steps and a resume
-    to 30 on phase 6's corpus, config and seed, against phase 6's eager run
-    and one more eager run; then eager and replayed steps timed on the same
-    batches."""
+    """Phase 8 (d): ``train(..., prewarm=True)`` for ``GRAPH_FIRST`` steps
+    and a resume to ``GRAPH_STEPS`` on phase 6's corpus, config and seed,
+    against one more eager run of the same depth and resume point (every
+    loss, the parameters at ``GRAPH_STEPS``) and phase 6's eager run (the
+    first ``GRAPH_FIRST`` losses, the parameters at ``GRAPH_FIRST``); then
+    eager and replayed steps timed on the same batches."""
     import os
 
     from tacotron_tpu_torch.data import DataFeeder
@@ -1699,8 +1757,8 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
     graph_run = os.path.join(tmp, "run_graphs")
     profile = os.path.join(tmp, "profile_graphs")
     t0 = time.perf_counter()
-    train(eager_run, dirs, cfg, num_steps=20, device=dev)
-    train(eager_run, dirs, cfg, num_steps=30, device=dev)
+    train(eager_run, dirs, cfg, num_steps=GRAPH_FIRST, device=dev)
+    train(eager_run, dirs, cfg, num_steps=GRAPH_STEPS, device=dev)
     eager_s = time.perf_counter() - t0
     shapes = DataFeeder(dirs, cfg, data_type="train",
                         seed=123).bucket_shapes()
@@ -1722,17 +1780,19 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
     TrainStep.__call__ = counted
     t0 = time.perf_counter()
     try:
-        train(graph_run, dirs, cfg, num_steps=20, device=dev,
-              profile_dir=profile, prewarm=True)
-        state = train(graph_run, dirs, cfg, num_steps=30, device=dev,
-                      prewarm=True)
+        train(graph_run, dirs, cfg, num_steps=GRAPH_FIRST, device=dev,
+              prewarm=True)
+        # the trace of the resumed steps (the driver's window, steps 11-15)
+        state = train(graph_run, dirs, cfg, num_steps=GRAPH_STEPS,
+                      device=dev, profile_dir=profile, prewarm=True)
     finally:
         TrainStep.__call__ = step_call
     graph_s = time.perf_counter() - t0
-    require(state.step == 30, f"(d) graph run ended at {state.step}")
+    require(state.step == GRAPH_STEPS,
+            f"(d) graph run ended at {state.step}")
     ladder = {tuple(map(int, sh)) for sh in shapes}
     replayed = sum(n for _, n in steps_seen)
-    require(len(steps_seen) == 30 and all(
+    require(len(steps_seen) == GRAPH_STEPS and all(
         n == (sh in ladder) for sh, n in steps_seen) and replayed > 0,
         f"(d) steps (shape, replays) {steps_seen}: a step of a bucket shape "
         f"{sorted(ladder)} must replay once, any other none")
@@ -1742,21 +1802,33 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
             and text.count("prewarm done") == 2,
             f"(d) the graph run's log lacks the prewarm lines for "
             f"{len(shapes)} shapes")
-    first_run = run_losses_and_params(trained["run_dir"])
-    eager2 = run_losses_and_params(eager_run)
-    graphs = run_losses_and_params(graph_run)
-    spread = run_spread(first_run, eager2)
-    # against the nearer eager run: the eager runs themselves may differ
-    # (atomics in the backward), and each step amplifies a difference
-    to_eager = [run_spread(e, graphs) for e in (first_run, eager2)]
-    err = tuple(min(d[i] for d in to_eager) for i in range(2))
+    # eager2 and the graph run resume at GRAPH_FIRST alike (one data
+    # order): they are compared over every step and on their parameters
+    # at GRAPH_STEPS.  Phase 6's run went on past GRAPH_FIRST in one call
+    # (another data order), so it meets the other two over their common
+    # first steps and parameters at GRAPH_FIRST; its distance to eager2
+    # there is the eager spread (atomics in the backward may part two
+    # eager runs) that sets the limit
+    first_run, eager2_head, graphs_head = (
+        run_losses_and_params(run, GRAPH_FIRST, GRAPH_FIRST)
+        for run in (trained["run_dir"], eager_run, graph_run))
+    eager2, graphs = (run_losses_and_params(run, GRAPH_STEPS, GRAPH_STEPS)
+                      for run in (eager_run, graph_run))
+    spread = run_spread(first_run, eager2_head, GRAPH_FIRST)
     limits = [max(2 * x, 1e-5) for x in spread]
+    err = run_spread(eager2, graphs)
     require(err[0] <= limits[0] and err[1] <= limits[1],
-            f"(d) graph run against eager: loss {to_eager[0][0]} / "
-            f"{to_eager[1][0]}, parameters {to_eager[0][1]} / "
-            f"{to_eager[1][1]}; eager against eager {spread}")
+            f"(d) graph run against eager2 over {GRAPH_STEPS} steps: loss "
+            f"{err[0]}, parameters at {GRAPH_STEPS} {err[1]}; eager against "
+            f"eager {spread}")
+    err_head = run_spread(first_run, graphs_head, GRAPH_FIRST)
+    require(err_head[0] <= limits[0] and err_head[1] <= limits[1],
+            f"(d) graph run against phase 6 over {GRAPH_FIRST} steps: loss "
+            f"{err_head[0]}, parameters at {GRAPH_FIRST} {err_head[1]}; eager "
+            f"against eager {spread}")
     losses = graphs[0]
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[25:]))
+    first, last = (float(np.mean(losses[:5])),
+                   float(np.mean(losses[GRAPH_STEPS - 5:])))
     require(last < first, f"(d) loss did not fall: {first} -> {last}")
     with open(os.path.join(profile, "summary.json")) as fh:
         prof = json.load(fh)
@@ -1775,17 +1847,21 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
     replay_t = time_train_steps(state, step_fn, iter(host), 1, 4)
     out = dict(eager_runs_s=eager_s, graph_runs_s=graph_s,
                replayed_steps=replayed,
-               eager_spread=spread, graph_err=err, loss_first5=first,
+               eager_spread=spread, graph_err=err, graph_err_head=err_head,
+               loss_first5=first,
                loss_last5=last, bucket_shapes=len(shapes),
                replay_idle=prof["device_idle_share"],
                eager_idle=trained["profile"]["device_idle_share"],
                eager=eager_t, replay=replay_t, timing_graphs=n,
                timing_capture_s=capture_s)
-    log(f"[graphs] (d) train(prewarm=True) 20 + resume to 30 on "
-        f"{len(shapes)} bucket shapes ({replayed} of 30 steps replayed, "
+    log(f"[graphs] (d) train(prewarm=True) {GRAPH_FIRST} + resume to "
+        f"{GRAPH_STEPS} on {len(shapes)} bucket shapes ({replayed} of "
+        f"{GRAPH_STEPS} steps replayed, "
         f"each step of a bucket shape): {graph_s:.1f} s against "
         f"{eager_s:.1f} s eager; loss {first:.4f} -> {last:.4f}; against "
-        f"eager: loss {err[0]:.3e}, parameters {err[1]:.3e} (eager against "
+        f"eager2 over {GRAPH_STEPS} steps: loss {err[0]:.3e}, parameters "
+        f"{err[1]:.3e}; against phase 6 over {GRAPH_FIRST}: loss "
+        f"{err_head[0]:.3e}, parameters {err_head[1]:.3e} (eager against "
         f"eager {spread[0]:.3e}, {spread[1]:.3e}); steps 11-15 idle "
         f"{prof['device_idle_share']:.4f} (eager "
         f"{out['eager_idle']:.4f}); the same 4 batches: eager "
@@ -2594,8 +2670,9 @@ def bf16_config(cfg):
 BF16_SHARE, BF16_ALIGN = 0.03, 1e-2
 #: and of the bf16 train step (tests/test_torch_bf16.py)
 BF16_LOSS_REL, BF16_GRAD_NORM_REL = 1e-2, 2e-2
-#: phase 11 (c)'s eager bf16 run (30 until phase 12 came; cut for time)
-BF16_STEPS = 20
+#: phase 11 (c)'s eager bf16 run (30 until phase 12 came, 20 until phase
+#: 13; cut for time)
+BF16_STEPS = 10
 
 
 def bf16_forward(dev, main: dict, dirs) -> dict:
@@ -3121,7 +3198,7 @@ def convergence_phase(dev, trained: dict, tmp: str) -> dict:
     # (b) the study CLI twice on one --work: the second call resumes
     work = os.path.join(tmp, "study")
     first, wall1, _ = study_cli(work, os.path.join(tmp, "study_art1"),
-                                "--steps", "100000", "--wall_budget_s", "30")
+                                "--steps", "100000", "--wall_budget_s", "15")
     n1 = first["steps"]
     require(n1 > 0, f"(b) the first call trained {n1} steps")
     second, wall2, stdout = study_cli(work, os.path.join(tmp, "study_art2"),
@@ -3172,7 +3249,7 @@ def convergence_phase(dev, trained: dict, tmp: str) -> dict:
     out["mulaw"] = dict(mulaw, wall_s=time.perf_counter() - t0)
     ev = out["study"]["eval"]
     log(f"[convergence] (b) the study CLI on a 48-a-speaker melody corpus, "
-        f"batch 32, bf16: call 1 (--wall_budget_s 30) {n1} steps in "
+        f"batch 32, bf16: call 1 (--wall_budget_s 15) {n1} steps in "
         f"{first['train_seconds']:.1f} s of training "
         f"({out['study']['steps_per_s']:.2f} steps/s), exit 0 in "
         f"{wall1:.1f} s; call 2 resumed at step {n1} to {n1 + 10}, exit 0 "
@@ -3203,6 +3280,349 @@ def convergence_phase(dev, trained: dict, tmp: str) -> dict:
     log(f"[convergence] (c) token_tone_accuracy of melody_wav itself: 1.0, "
         f"wrong-token rate 0, for {len(heldout)} held-out sentences x 2 "
         f"speakers, melody and melody_var")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ----------------------------------------------------------------- studies
+
+def check_k3_at(dev, rng, n_fft: int, rows: int) -> float:
+    """K3 against its plain version on random frames and magnitudes of
+    ``rows`` rows; the max error over the output's peak, at most 2e-3 (as
+    in :func:`check_k3`)."""
+    from tacotron_tpu_torch.ops.kernels import griffin_lim
+
+    frames = torch.from_numpy(
+        rng.standard_normal((rows, n_fft)).astype(np.float32)).to(dev)
+    mag = torch.from_numpy(rng.random(
+        (rows, n_fft // 2 + 1)).astype(np.float32) ** 1.5).to(dev)
+    rel = rel_err(griffin_lim.spectral_step(frames, mag, n_fft),
+                  griffin_lim.spectral_step_reference(frames, mag,
+                                                      n_fft))[1]
+    require(rel <= 2e-3, f"K3 at {rows} rows x n_fft {n_fft}: rel {rel}")
+    return rel
+
+
+def k4_bf16(dev, synth, rng) -> dict:
+    """(a) K4 with bf16 weights, biases and mask, as JAX's kernel takes
+    them, at the forward direction of the encoder's BiGRU (H=128) and the
+    post-net's (H=256) of a full-width decode: counted launches, no copy
+    in the wrapper, the output and the weight gradients against the plain
+    version on the same bf16 tensors, the cluster route, and the time
+    beside float32 K4 on the same inputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tacotron_tpu_torch.ops.kernels import gru
+
+    class Ops(TorchDispatchMode):
+        """The aten operations run under it."""
+
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    captured = capture_bigru_inputs(dev, synth)
+    sites = {}
+    for name in ("encoder", "post-net"):
+        x, h0, wg, bg, wc, bc, mask = direction_args(dev, captured, name)
+        low = [t.to(torch.bfloat16) for t in (wg, bg, wc, bc, mask)]
+        sites[name] = dict(f32=[x, h0, wg, bg, wc, bc, mask],
+                           bf16=[x, h0, *low])
+    # the counted run: each site once through the kernel
+    gru.gru_sequence.launches = 0
+    ops = Ops()
+    with torch.no_grad(), ops:
+        outs = {name: gru.gru_sequence(*site["bf16"])
+                for name, site in sites.items()}
+    torch.cuda.synchronize()
+    launches = gru.gru_sequence.launches
+    require(launches == 2, f"(a) bf16 K4 launched {launches} times, not 2")
+    copies = [n for n in ops.names if "copy" in n]
+    require(not copies, f"(a) the bf16 K4 wrapper copied a tensor: {copies}")
+    out = {"launches": launches, "sites": {}}
+    for name, site in sites.items():
+        args = site["bf16"]
+        x, h0 = args[:2]
+        T, N, D = x.shape
+        H = h0.shape[1]
+        plan = gru.cluster_plan(N, H)
+        require(plan.route == "cluster",
+                f"(a) the {name} direction is not on the cluster route: "
+                f"{plan}")
+        with torch.no_grad():
+            want = gru.gru_reference_scan(*args)
+        require(outs[name].dtype == torch.float32,
+                f"(a) bf16 K4 output {outs[name].dtype}")
+        max_abs, rel = rel_err(outs[name], want)
+        # the same f32 arithmetic on exactly converted operands, summed in
+        # another order: the float32 kernel's bound against the module
+        require(max_abs <= 1e-4, f"(a) bf16 K4 at the {name} direction: "
+                                 f"{max_abs}")
+        # weight gradients of a sum of squares: through the kernel's
+        # Function (its backward the plain scan) against autograd through
+        # the plain scan; bf16 gradients, so one bf16 ulp of the largest
+        leaves = [t.detach().requires_grad_() for t in args[2:6]]
+        with torch.enable_grad():
+            g_k = torch.autograd.grad((gru.gru_sequence(
+                x, h0, *leaves, args[6]) ** 2).sum(), leaves)
+            g_p = torch.autograd.grad((gru.gru_reference_scan(
+                x, h0, *leaves, args[6]) ** 2).sum(), leaves)
+        require(all(g.dtype == torch.bfloat16 for g in g_k),
+                f"(a) gradient dtypes {[g.dtype for g in g_k]}")
+        grad_rel = max(rel_err(a.float(), b.float())[1]
+                       for a, b in zip(g_k, g_p))
+        require(grad_rel <= 2.0 ** -7, f"(a) bf16 K4 gradients at the "
+                                       f"{name} direction: rel {grad_rel}")
+        with torch.no_grad():
+            ms = time_ms(lambda: gru.gru_sequence(*args))
+            f32_ms = time_ms(lambda: gru.gru_sequence(*site["f32"]))
+        flops = 2 * T * N * (D + H) * 3 * H
+        nbytes = ((D + H) * 3 * H * 2 + 3 * H * 2    # bf16 weights, biases
+                  + T * N * D * 4 + N * H * 4       # x, h0
+                  + T * N * 2 + T * N * H * 4)      # bf16 mask, outputs
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out["sites"][name] = dict(
+            shape="T={} N={} D={} H={}".format(T, N, D, H),
+            max_abs_err=max_abs, rel_err=rel, grad_rel_err=grad_rel,
+            ms=ms, f32_ms=f32_ms, plan=plan._asdict(), flops=flops,
+            bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"[studies] (a) bf16-weight K4, {name} direction "
+            f"{out['sites'][name]['shape']}: plan {plan.route} "
+            f"{plan.cluster} blocks; max abs err {max_abs:.3e} (rel "
+            f"{rel:.3e}), weight gradients (bf16) rel {grad_rel:.3e}; "
+            f"{ms:.4f} ms against {f32_ms:.4f} ms float32; no copy in the "
+            f"wrapper")
+    with torch.no_grad():
+        post = sites["post-net"]["bf16"]
+        out["plain_ms"] = time_ms(graphed(
+            lambda: gru.gru_reference_scan(*post)))
+    return out
+
+
+def load_launches(synth, calls: list) -> tuple:
+    """(K1/K2/K3 launches, {(kernel, padded batch, frames)}) that the
+    recorded ``synthesize`` calls (their texts) must make: each chunk runs
+    the fast vocoder's iterations through K1 where ``fused_supported``
+    takes its frames, else through matmul_half and K2 (one more for the
+    start)."""
+    from tacotron_tpu_torch.ops.kernels.gl_fused import fused_supported
+    from tacotron_tpu_torch.text import text_to_sequence
+
+    audio, r = synth.config.audio, synth.config.model.reduction_factor
+    want, shapes = {"K1": 0, "K2": 0, "K3": 0}, set()
+    iters = synth.FAST_GRIFFIN_LIM_ITERS
+    for texts in calls:
+        seqs = [text_to_sequence(t, synth.cleaner_names(),
+                                 symbol_set=synth.config.data.symbol_set)
+                for t in texts]
+        steps = synth._budget([len(q) for q in seqs], None, 32)[1]
+        chunks = synth._chunks(len(texts))
+        fused = fused_supported(audio, steps * r)
+        if fused:
+            want["K1"] += K1_PER_ITERATION * iters * len(chunks)
+        else:
+            want["K2"] += (iters + 1) * len(chunks)
+        shapes |= {("K1" if fused else "K2", nb, steps * r)
+                   for _, _, nb in chunks}
+    return want, shapes
+
+
+def serving_load_study(dev, synth, rng) -> dict:
+    """(b) ``studies/serving_load.py::run_load_test`` on phase 4's
+    synthesizer, prewarmed, at levels 1 and 4 with 4 requests, ``max_batch``
+    4 and 1: the rows' keys, every call replayed, and the K1/K2 launches
+    of the replays (a trace of the run; the counters see none) held to the
+    count the calls' texts give (:func:`load_launches`), the kernel that
+    ran against its plain version at each chunk's shape."""
+    from tacotron_tpu_torch.studies import serving_load
+
+    # the programs first, outside the trace (run_load_test's own prewarm
+    # then finds them all captured)
+    t0 = time.perf_counter()
+    synth.prewarm(token_buckets=(32, 64), batch_sizes=(1, 2, 4),
+                  fast_vocoder=True)
+    prewarm_s = time.perf_counter() - t0
+    calls = []
+    inner = synth.synthesize
+
+    def recorded(**kw):
+        calls.append(list(kw["texts"]))
+        return inner(**kw)
+
+    synth.synthesize = recorded
+    zero_counts()
+    try:
+        report, summary = traced(lambda: serving_load.run_load_test(
+            synth, levels=(1, 4), requests_per_level=4, max_batches=(4, 1),
+            prewarm=True))
+    finally:
+        del synth.synthesize
+    counted, in_trace = read_counts(), trace_counts(summary)
+    want, shapes = load_launches(synth, calls)
+    got = {k: counted[k] + in_trace[k] for k in want}
+    require(got == want, f"(b) serving_load launches {got} (counters "
+                         f"{counted}, trace {in_trace}), derived {want} "
+                         f"from {len(calls)} calls")
+    require(not any(counted.values()),
+            f"(b) a prewarmed call ran eagerly: counters {counted}")
+    rows = report["levels"]
+    require([(r["max_batch"], r["concurrency"]) for r in rows]
+            == [(4, 1), (4, 4), (1, 1), (1, 4)], f"(b) rows {rows}")
+    for row in rows:
+        require(set(row) == LOAD_ROW_KEYS, f"(b) row keys {sorted(row)}")
+        require(row["k1_launches"] == row["k2_launches"] == 0
+                and 1 <= row["replays"] <= row["requests"],
+                f"(b) row {row}: every call replays")
+        if row["concurrency"] == 1 or row["max_batch"] == 1:
+            require(row["batched_calls"] == 0
+                    and row["replays"] == row["requests"],
+                    f"(b) coalesced without concurrency: {row}")
+    require(sum(r["replays"] for r in rows) == len(calls),
+            f"(b) {sum(r['replays'] for r in rows)} replays for "
+            f"{len(calls)} calls")
+    errs = {f"{k} B={nb} T={frames}":
+            (check_k1_at if k == "K1" else check_k2_at)(
+                dev, rng, synth.config.audio, nb, frames)
+            for k, nb, frames in sorted(shapes)}
+    return dict(rows=rows, launches=got, calls=len(calls),
+                prewarm_s=prewarm_s, kernel_err=errs)
+
+
+#: the keys of a serving_load row: the script's, and the port's launch
+#: and replay counts
+LOAD_ROW_KEYS = {"concurrency", "requests", "p50_ms", "p95_ms", "mean_ms",
+                 "throughput_rps", "batched_calls", "max_batch",
+                 "k1_launches", "k2_launches", "replays"}
+
+
+def sweep_study(dev, rng) -> dict:
+    """(c) One ``pallas`` point of ``studies/synth_sweep.py`` at batch 16
+    (``Config()``, random weights from seed 0, 50 steps, 30 momentum
+    iterations): its eager call's K3 and K2 launches held to the engine's
+    (one K3 an iteration, one K2 more than the iterations), the kernels
+    against their plain versions at the point's shapes, a finite
+    convergence and both times."""
+    from tacotron_tpu_torch.config import Config
+    from tacotron_tpu_torch.studies import synth_sweep
+    from tacotron_tpu_torch.synth import Synthesizer
+
+    synth = Synthesizer(device=dev).init_random(Config())
+    B, iters = 16, 30
+    inp, lens = synth_sweep.make_inputs(synth, B)
+    with torch.no_grad():
+        spec0 = synth.model(inp, lens, max_steps=synth_sweep.MAX_STEPS)[
+            "linear_outputs"][0].float().cpu().numpy()
+    point = synth_sweep.sweep_point(synth, inp, lens, spec0, "pallas", iters,
+                                    0.99, reps=3, warmup=1)
+    want = {"k3_launches": iters, "k2_launches": iters + 1}
+    got = {k: point[k] for k in want}
+    require(got == want, f"(c) sweep point launches {got}, derived {want}")
+    require(np.isfinite(point["spectral_convergence"])
+            and point["batch_seconds"] > 0, f"(c) point {point}")
+    audio = synth.config.audio
+    frames = synth_sweep.MAX_STEPS * synth.config.model.reduction_factor
+    point["kernel_err"] = {
+        "K3": check_k3_at(dev, rng, audio.n_fft, B * frames),
+        "K2": check_k2_at(dev, rng, audio, B, frames)}
+    return point
+
+
+def study_subprocesses(runs: dict) -> dict:
+    """``python -m tacotron_tpu_torch.studies.<name> <args>`` for each
+    ``name: args`` of ``runs``, as a user runs them, on the card, all at
+    once (they share the card as two users' jobs would): each exits 0.
+    Returns {name: (wall seconds, the last line it printed)}."""
+    import os
+
+    t0 = time.perf_counter()
+    procs, out = {}, {}
+    # each writes to files, so that neither stalls on a full pipe while
+    # the other is waited for
+    with tempfile.TemporaryDirectory() as logs:
+        try:
+            for name, args in runs.items():
+                files = [open(os.path.join(logs, f"{name}.{k}"), "w+")
+                         for k in ("out", "err")]
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, "-m",
+                     f"tacotron_tpu_torch.studies.{name}", *args],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    stdout=files[0], stderr=files[1], text=True), files)
+            for name, (proc, files) in procs.items():
+                proc.wait(timeout=400)
+                wall = time.perf_counter() - t0
+                for f in files:
+                    f.seek(0)
+                stdout, stderr = (f.read() for f in files)
+                require(proc.returncode == 0, f"(d) {name} exited "
+                        f"{proc.returncode}: {stderr[-3000:]}")
+                out[name] = (wall, stdout.strip().splitlines()[-1])
+        finally:
+            for proc, files in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                for f in files:
+                    f.close()
+    return out
+
+
+def studies_phase(dev, main: dict, tmp: str) -> dict:
+    """Phase 13 (a)-(d) of the module docstring."""
+    import os
+
+    from tacotron_tpu_torch.utils import card_line
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    out = {"k4": k4_bf16(dev, main["synth"], rng)}
+    t0 = time.perf_counter()
+    out["load"] = serving_load_study(dev, main["synth"], rng)
+    out["load"]["wall_s"] = time.perf_counter() - t0
+    load = out["load"]
+    log("[studies] (b) serving_load, prewarmed ("
+        f"{load['prewarm_s']:.1f} s), {load['calls']} calls, launches "
+        f"{load['launches']} (as derived): " + "; ".join(
+            f"max_batch {r['max_batch']} N={r['concurrency']}: p50 "
+            f"{r['p50_ms']} ms, p95 {r['p95_ms']} ms, "
+            f"{r['throughput_rps']} req/s, batched_calls "
+            f"{r['batched_calls']}, replays {r['replays']}"
+            for r in load["rows"]))
+    out["sweep"] = sweep_study(dev, rng)
+    p = out["sweep"]
+    log(f"[studies] (c) synth_sweep pallas point at batch 16: replay "
+        f"{p['batch_seconds']} s ({p['audio_s_per_s']} audio s/s), eager "
+        f"{p['eager_seconds']} s ({p['eager_audio_s_per_s']} audio s/s), "
+        f"capture {p['capture_s']} s, spectral convergence "
+        f"{p['spectral_convergence']}, launches K3 {p['k3_launches']} K2 "
+        f"{p['k2_launches']} (as derived)")
+    # (d) the two training studies as a user runs them, a few steps each
+    # (10 a bf16_study arm; 640 samples give batch_study's batch-64 arms
+    # the 10 steps of one logged record)
+    work = os.path.join(tmp, "bf16_study")
+    done = study_subprocesses({
+        "bf16_study": ["--steps", "10", "--work_dir", work],
+        "batch_study": ["--samples", "640", "--work",
+                        os.path.join(tmp, "batch_study")]})
+    with open(os.path.join(work, "BF16_STUDY.md"), encoding="utf-8") as fh:
+        text = fh.read()
+    require(f"device: {card_line()}." in text and "**Recommendation**"
+            in text, f"(d) bf16_study report: {text[:400]!r}")
+    summary = json.loads(done["batch_study"][1])
+    require(set(summary) == {"b16", "b64", "b64_rescaled", "winner",
+                             "rel_diff"}
+            and np.isfinite([summary["b16"], summary["b64"]]).all(),
+            f"(d) batch_study summary {summary}")
+    out["cli"] = dict(bf16_s=done["bf16_study"][0],
+                      batch_s=done["batch_study"][0], batch_summary=summary)
+    log(f"[studies] (d) bf16_study --steps 10 and batch_study --samples "
+        f"640 at once: exit 0 after {out['cli']['bf16_s']:.1f} s and "
+        f"{out['cli']['batch_s']:.1f} s, {summary}")
     out["wall_s"] = time.perf_counter() - t_phase
     return out
 
@@ -3269,6 +3689,7 @@ def main() -> int:
         corpus = corpus_phase(dev, tmp)
         bf16 = bf16_phase(dev, main, trained, graphs, tmp)
         conv = convergence_phase(dev, trained, tmp)
+        studies = studies_phase(dev, main, tmp)
     for k, name in zip(kernels, ("K1", "K2", "K3")):
         k["launches_serving"] = {step: v[name]
                                  for step, v in serve["launches"].items()}
@@ -3376,6 +3797,43 @@ def main() -> int:
         f"{conv['mulaw']['lsd_db_mean']} dB, SNR "
         f"{conv['mulaw']['snr_db_mean']} dB; phase 12 wall time "
         f"{conv['wall_s']:.1f} s on {card}")
+    for k, name in zip(kernels, ("K1", "K2", "K3")):
+        # phase 13 (b) (in the replays' trace) and (c) (the eager call)
+        k["launches_studies"] = {
+            "serving_load": studies["load"]["launches"][name],
+            "synth_sweep": {"K2": studies["sweep"]["k2_launches"],
+                            "K3": studies["sweep"]["k3_launches"]}.get(
+                                name, 0)}
+    k4, k4b = kernels[3], studies["k4"]
+    post, enc = k4b["sites"]["post-net"], k4b["sites"]["encoder"]
+    kernels.append({
+        "name": "gru_sequence (bf16 weights, biases and mask)",
+        "route": "cuda", "source": "tacotron_tpu_torch/csrc/gru.cu",
+        "replaces": "tacotron_tpu/ops/pallas/gru.py:47",
+        "tpu_kernel": "gru.py::_gru_kernel via _gru_pallas_raw / "
+                      "gru_sequence, with bf16 wg, bg, wc, bc and mask",
+        "shape": f"one direction of the post-net BiGRU: {post['shape']}",
+        "launches": k4b["launches"],
+        "max_abs_err": max(post["max_abs_err"], enc["max_abs_err"]),
+        "grad_max_rel_err": {"post-net": post["grad_rel_err"],
+                             "encoder": enc["grad_rel_err"]},
+        "ms": post["ms"], "f32_ms": post["f32_ms"],
+        "ms_encoder_direction": enc["ms"],
+        "f32_ms_encoder_direction": enc["f32_ms"],
+        "plain_ms": k4b["plain_ms"], "library_ms": None,
+        "library_note": k4["library_note"],
+        "bound_ms": post["bound_ms"], "bound_by": post["bound_by"],
+        "floor_ms": k4["floor_ms"], "plan": post["plan"],
+        "flops": post["flops"], "bytes": post["bytes"]})
+    ld, sw, cli = studies["load"], studies["sweep"], studies["cli"]
+    log(f"[studies] bf16-weight K4 {post['ms']:.4f} ms (float32 "
+        f"{post['f32_ms']:.4f}) post-net, {enc['ms']:.4f} ms (float32 "
+        f"{enc['f32_ms']:.4f}) encoder; serving_load {ld['calls']} calls, "
+        f"launches {ld['launches']}, {ld['wall_s']:.1f} s; synth_sweep "
+        f"pallas at batch 16 {sw['batch_seconds']} s replayed, "
+        f"{sw['eager_seconds']} s eager; bf16_study {cli['bf16_s']:.1f} s, "
+        f"batch_study {cli['batch_s']:.1f} s; phase 13 wall time "
+        f"{studies['wall_s']:.1f} s on {card}")
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")

@@ -1,6 +1,7 @@
 // A TF1-convention GRU over a whole sequence, with a per-step mask:
-// x [T, N, D] f32, h0 [N, H], wg [D+H, 2H], bg [2H], wc [D+H, H], bc [H],
-// mask [T, N] -> out [T, N, H] f32.  Per step:
+// x [T, N, D] f32, h0 [N, H] f32, wg [D+H, 2H], bg [2H], wc [D+H, H], bc [H],
+// mask [T, N] -> out [T, N, H] f32, where wg, bg, wc, bc and the mask are
+// each f32 or bf16, as the TPU kernel takes them.  Per step:
 //
 //   [r, u] = sigmoid(x_t @ wg[:D] + h @ wg[D:] + bg)
 //   c      = tanh(x_t @ wc[:D] + (r * h) @ wc[D:] + bc)
@@ -8,8 +9,13 @@
 //   out_t  = h_new * m_t,   h = h * (1 - m_t) + h_new * m_t
 //
 // Replaces the TPU kernel tacotron_tpu/ops/pallas/gru.py::_gru_kernel (driven
-// by _gru_pallas_raw / gru_sequence).  Everything is f32, on the CUDA cores
-// (no TF32).
+// by _gru_pallas_raw / gru_sequence).  The arithmetic is f32, on the CUDA
+// cores (no TF32): a bf16 operand is converted to f32 as it is loaded, which
+// is exact, as the TPU kernel's products with preferred_element_type=f32 are.
+// The element type of each bf16-capable operand is a bit of the C calls'
+// `dtypes` (kOperand* below), read through a Src in every kernel, so the
+// cluster kernel keeps its 32 instances (16 depths x products on and off)
+// for every combination of types.
 //
 // Bound on the H100: f32 operations, 2 * T * N * (D + H) * 3H flops against
 // the weights, inputs and outputs read and written once (0.0094 ms at the
@@ -50,6 +56,7 @@
 // every step, one block per row: the route ops/kernels/gru.py::cluster_plan
 // picks from the shapes.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "wgmma_gemm.cuh"
@@ -72,23 +79,39 @@ constexpr int CL_MAX_KI = 16;     // depth chunks of 32: H <= 512
 constexpr int CL_MAX_QW1 = 4;     // gate quads per warp (Hs <= 64)
 constexpr int CL_MAX_QW2 = 2;     // candidate quads per warp
 
+// bits of the C calls' `dtypes`: the operand is bf16 where its bit is set
+constexpr int kOperandWg = 1, kOperandBg = 2, kOperandWc = 4, kOperandBc = 8,
+              kOperandMask = 16;
+
 }  // namespace
+
+// An operand of f32 or bf16 elements: s[i] loads element i as f32.
+struct Src {
+  const void* p;
+  int bf16;
+  __device__ __forceinline__ float operator[](long i) const {
+    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+                : static_cast<const float*>(p)[i];
+  }
+  // the operand from element i on
+  __host__ __device__ Src from(long i) const {
+    return {static_cast<const char*>(p) + i * (bf16 ? 2 : 4), bf16};
+  }
+};
 
 // (1) Both input halves in one launch: gx[M, 2H] = x[M, D] @ wg[0:D] + bg
 // and cx[M, H] = x @ wc[0:D] + bc, with wg and wc row-major of widths 2H
 // and H.  grid = (ceil(M / 64), ceil(2H / 64) + ceil(H / 64)): the first
 // column tiles are gx's, the rest cx's.
 __global__ void __launch_bounds__(PROJ_THREADS) gru_input_proj_kernel(
-    const float* __restrict__ x, const float* __restrict__ wg,
-    const float* __restrict__ bg, const float* __restrict__ wc,
-    const float* __restrict__ bc, float* __restrict__ gx,
-    float* __restrict__ cx, int M, int D, int H) {
+    const float* __restrict__ x, Src wg, Src bg, Src wc, Src bc,
+    float* __restrict__ gx, float* __restrict__ cx, int M, int D, int H) {
   __shared__ float sX[PROJ_DEPTH][PROJ_TILE + 1];
   __shared__ float sW[PROJ_DEPTH][PROJ_TILE];
   const int g_tiles = (2 * H + PROJ_TILE - 1) / PROJ_TILE;
   const bool gates = static_cast<int>(blockIdx.y) < g_tiles;
-  const float* w = gates ? wg : wc;
-  const float* b = gates ? bg : bc;
+  const Src w = gates ? wg : wc;
+  const Src b = gates ? bg : bc;
   float* out = gates ? gx : cx;
   const int C = gates ? 2 * H : H;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -228,6 +251,56 @@ __device__ __forceinline__ float4 gather_rows(float v, int lane) {
                      __shfl_sync(0xffffffffu, v, src + 24));
 }
 
+// The columns a cluster block owns of the recurrent halves (units
+// [u0, u0 + own) of r, u and the candidate), over the depth HK, into its
+// shared memory in f32 (the `w` layout of gru_cluster_kernel), read once.
+// Where both are f32, H and hs multiples of 4 and the weights 16-byte
+// aligned, four units of one depth are one 16-byte load and one float4 of
+// the layout; else (bf16 weights among them) warp w takes depths w, w + 8,
+// ..., its lanes the columns of each part, converting each element.  Out
+// of line: the kernel's 32 instances call one copy.
+__device__ __noinline__ void gather_columns(float4* w4, Src wgh, Src wch,
+                                            int H, int HK, int hs,
+                                            int hs_pad, int u0, int own) {
+  const int qr = hs_pad / 4;
+  if (!wgh.bf16 && !wch.bf16 && (H & 3) == 0 && (hs & 3) == 0 &&
+      ((reinterpret_cast<unsigned long>(wgh.p) |
+        reinterpret_cast<unsigned long>(wch.p)) & 15) == 0) {
+    const float* wgf = static_cast<const float*>(wgh.p);
+    const float* wcf = static_cast<const float*>(wch.p);
+    const int quads = 3 * qr;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < HK * quads; i += CL_THREADS) {
+      const int k = i / quads, qq = i - k * quads;
+      const int part = qq / qr, c = (qq - part * qr) * 4;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (k < H && c < own)
+        v = *reinterpret_cast<const float4*>(
+            part == 2
+                ? wcf + static_cast<long>(k) * H + u0 + c
+                : wgf + static_cast<long>(k) * 2 * H + part * H + u0 + c);
+      w4[qq * HK + k] = v;
+    }
+    return;
+  }
+  float* wf = reinterpret_cast<float*>(w4);
+#pragma unroll 4
+  for (int k = threadIdx.x / 32; k < HK; k += CL_WARPS) {
+#pragma unroll
+    for (int part = 0; part < 3; ++part) {
+      for (int c = threadIdx.x % 32; c < hs_pad; c += 32) {
+        const int unit = u0 + c;
+        float v = 0.0f;
+        if (k < H && c < own)
+          v = part == 2
+                  ? wch[static_cast<long>(k) * H + unit]
+                  : wgh[static_cast<long>(k) * 2 * H + part * H + unit];
+        wf[((part * qr + c / 4) * HK + k) * 4 + (c & 3)] = v;
+      }
+    }
+  }
+}
+
 // grid = (C, ceil(N / rows)), clusters of C blocks along x.  gx [T, N, 2H]
 // and cx [T, N, H] hold the input halves with the biases; wgh [H, 2H] and
 // wch [H, H] are the recurrent halves in the caller's layout.  Block k owns
@@ -250,8 +323,7 @@ __device__ __forceinline__ float4 gather_rows(float v, int lane) {
 template <int KI, bool kProducts>
 __global__ void __launch_bounds__(CL_THREADS, 1) gru_cluster_kernel(
     const float* __restrict__ gx, const float* __restrict__ cx,
-    const float* __restrict__ h0, const float* __restrict__ wgh,
-    const float* __restrict__ wch, const float* __restrict__ mask,
+    const float* __restrict__ h0, Src wgh, Src wch, Src mask,
     float* __restrict__ out, int T, int N, int H, int hs, int hs_pad,
     int rows) {
   constexpr int HK = 32 * KI;
@@ -279,43 +351,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_cluster_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
-  // the block's columns of the recurrent halves, read once.  Where H and hs
-  // are multiples of 4 (and the weights 16-byte aligned), four units of one
-  // depth are one 16-byte load and one float4 of the layout; else warp w
-  // takes depths w, w + 8, ..., its lanes the columns of each part.
-  if ((H & 3) == 0 && (hs & 3) == 0 &&
-      ((reinterpret_cast<unsigned long>(wgh) |
-        reinterpret_cast<unsigned long>(wch)) & 15) == 0) {
-    const int quads = 3 * qr;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < HK * quads; i += CL_THREADS) {
-      const int k = i / quads, qq = i - k * quads;
-      const int part = qq / qr, c = (qq - part * qr) * 4;
-      float4 v = zero4;
-      if (k < H && c < own)
-        v = *reinterpret_cast<const float4*>(
-            part == 2 ? wch + static_cast<long>(k) * H + u0 + c
-                      : wgh + static_cast<long>(k) * 2 * H + part * H + u0 + c);
-      w4[qq * HK + k] = v;
-    }
-  } else {
-    float* wf = reinterpret_cast<float*>(w4);
-#pragma unroll 4
-    for (int k = threadIdx.x / 32; k < HK; k += CL_WARPS) {
-#pragma unroll
-      for (int part = 0; part < 3; ++part) {
-        for (int c = threadIdx.x % 32; c < hs_pad; c += 32) {
-          const int unit = u0 + c;
-          float v = 0.0f;
-          if (k < H && c < own)
-            v = part == 2
-                    ? wch[static_cast<long>(k) * H + unit]
-                    : wgh[static_cast<long>(k) * 2 * H + part * H + unit];
-          wf[((part * qr + c / 4) * HK + k) * 4 + (c & 3)] = v;
-        }
-      }
-    }
-  }
+  gather_columns(w4, wgh, wch, H, HK, hs, hs_pad, u0, own);
   for (int k = threadIdx.x; k < HK; k += CL_THREADS) {
     float h[4];
 #pragma unroll
@@ -367,7 +403,6 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_cluster_kernel(
     c_src[j] = (row_ok && cl < own) ? cx + static_cast<long>(n) * H + u0 + cl
                                     : nullptr;
   }
-  const float* m_src = row_ok ? mask + n : nullptr;
   auto load_inputs = [&](int t, StepInputs& dst) {
     const bool ok = t < T;
 #pragma unroll
@@ -378,7 +413,7 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_cluster_kernel(
     for (int j = 0; j < CL_MAX_QW2; ++j)
       dst.c[j] = (ok && c_src[j]) ? c_src[j][static_cast<long>(t) * N * H]
                                   : 0.0f;
-    dst.m = (ok && m_src) ? m_src[static_cast<long>(t) * N] : 0.0f;
+    dst.m = (ok && row_ok) ? mask[static_cast<long>(t) * N + n] : 0.0f;
   };
   load_inputs(0, in[0]);
   load_inputs(1, in[1]);
@@ -466,10 +501,8 @@ __global__ void __launch_bounds__(CL_THREADS, 1) gru_cluster_kernel(
 // C columns and nsl depth slices of a [K, C] row-major matrix; thread t
 // takes column t % C of slice t / C (and further columns when C exceeds the
 // block).  Ends with a barrier.
-__device__ __forceinline__ void partial_matvec(const float* v,
-                                               const float* __restrict__ w,
-                                               int K, int C, int nsl,
-                                               float* part) {
+__device__ __forceinline__ void partial_matvec(const float* v, Src w, int K,
+                                               int C, int nsl, float* part) {
   const int span = (K + nsl - 1) / nsl;
   for (int j = threadIdx.x; j < C * nsl; j += blockDim.x) {
     const int col = j % C, sl = j / C;
@@ -480,12 +513,12 @@ __device__ __forceinline__ void partial_matvec(const float* v,
       float wv[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u)
-        wv[u] = __ldg(w + static_cast<long>(k + u) * C + col);
+        wv[u] = w[static_cast<long>(k + u) * C + col];
 #pragma unroll
       for (int u = 0; u < 8; ++u) acc[u & 3] += v[k + u] * wv[u];
     }
     for (; k < k_hi; ++k)
-      acc[0] += v[k] * __ldg(w + static_cast<long>(k) * C + col);
+      acc[0] += v[k] * w[static_cast<long>(k) * C + col];
     part[j] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
   __syncthreads();
@@ -503,8 +536,7 @@ __device__ __forceinline__ float slices_sum(const float* part, int j, int C,
 // r*h [H] each, gates [2H], and the partial sums of partial_matvec.
 __global__ void __launch_bounds__(REC_THREADS) gru_recurrent_kernel(
     const float* __restrict__ gx, const float* __restrict__ cx,
-    const float* __restrict__ h0, const float* __restrict__ wgh,
-    const float* __restrict__ wch, const float* __restrict__ mask,
+    const float* __restrict__ h0, Src wgh, Src wch, Src mask,
     float* __restrict__ out, int T, int N, int H, int nsl_g, int nsl_c) {
   extern __shared__ float smem[];
   float* h = smem;
@@ -545,23 +577,24 @@ __global__ void __launch_bounds__(REC_THREADS) gru_recurrent_kernel(
 
 // ---------------------------------------------------------------------------
 // C entry points.  Each launches on `stream` and returns the first launch
-// error, or 0.
+// error, or 0.  `dtypes` holds a kOperand* bit for each of wg, bg, wc, bc
+// and the mask that is bf16 (0: all f32).
 
 // The input halves of every step: gx [T, N, 2H] = x @ wg[:D] + bg and
 // cx [T, N, H] = x @ wc[:D] + bc (the caller's scratch), in one launch.
 extern "C" int gru_projection(const void* x, const void* wg, const void* bg,
                               const void* wc, const void* bc, void* gx,
                               void* cx, int T, int N, int D, int H,
-                              void* stream) {
+                              int dtypes, void* stream) {
   const int M = T * N;
   const dim3 grid((M + PROJ_TILE - 1) / PROJ_TILE,
                   (2 * H + PROJ_TILE - 1) / PROJ_TILE +
                       (H + PROJ_TILE - 1) / PROJ_TILE);
   gru_input_proj_kernel<<<grid, PROJ_THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wg),
-      static_cast<const float*>(bg), static_cast<const float*>(wc),
-      static_cast<const float*>(bc), static_cast<float*>(gx),
+      static_cast<const float*>(x), Src{wg, (dtypes & kOperandWg) != 0},
+      Src{bg, (dtypes & kOperandBg) != 0}, Src{wc, (dtypes & kOperandWc) != 0},
+      Src{bc, (dtypes & kOperandBc) != 0}, static_cast<float*>(gx),
       static_cast<float*>(cx), M, D, H);
   return static_cast<int>(cudaGetLastError());
 }
@@ -570,10 +603,9 @@ namespace {
 
 template <int KI, bool kProducts>
 cudaError_t launch_cluster(const float* gx, const float* cx, const float* h0,
-                           const float* wgh, const float* wch,
-                           const float* mask, float* out, int T, int N,
-                           int H, int blocks, int hs, int rows, int smem,
-                           cudaStream_t s) {
+                           Src wgh, Src wch, Src mask, float* out, int T,
+                           int N, int H, int blocks, int hs, int rows,
+                           int smem, cudaStream_t s) {
   auto kernel = gru_cluster_kernel<KI, kProducts>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -602,10 +634,9 @@ cudaError_t launch_cluster(const float* gx, const float* cx, const float* h0,
 
 template <bool kProducts>
 cudaError_t dispatch_cluster(int ki, const float* gx, const float* cx,
-                             const float* h0, const float* wgh,
-                             const float* wch, const float* mask, float* out,
-                             int T, int N, int H, int blocks, int hs,
-                             int rows, int smem, cudaStream_t s) {
+                             const float* h0, Src wgh, Src wch, Src mask,
+                             float* out, int T, int N, int H, int blocks,
+                             int hs, int rows, int smem, cudaStream_t s) {
 #define GRU_CLUSTER_CASE(K)                                                 \
   case K:                                                                   \
     return launch_cluster<K, kProducts>(gx, cx, h0, wgh, wch, mask, out, T, \
@@ -646,15 +677,18 @@ extern "C" int gru_recurrence(const void* gx, const void* cx, const void* h0,
                               const void* wg, const void* wc,
                               const void* mask, void* out, int T, int N,
                               int D, int H, int blocks, int hs, int rows,
-                              int smem, int products, void* stream) {
+                              int smem, int products, int dtypes,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wgh =
-      static_cast<const float*>(wg) + static_cast<long>(D) * 2 * H;
-  const float* wch = static_cast<const float*>(wc) + static_cast<long>(D) * H;
+  // the recurrent halves: rows D.. of wg and wc
+  const Src wgh = Src{wg, (dtypes & kOperandWg) != 0}.from(
+      static_cast<long>(D) * 2 * H);
+  const Src wch = Src{wc, (dtypes & kOperandWc) != 0}.from(
+      static_cast<long>(D) * H);
+  const Src maskv{mask, (dtypes & kOperandMask) != 0};
   const float* gxf = static_cast<const float*>(gx);
   const float* cxf = static_cast<const float*>(cx);
   const float* h0f = static_cast<const float*>(h0);
-  const float* maskf = static_cast<const float*>(mask);
   float* outf = static_cast<float*>(out);
   if (blocks > 0) {
     const int ki = (H + 31) / 32;
@@ -666,10 +700,10 @@ extern "C" int gru_recurrence(const void* gx, const void* cx, const void* h0,
         ki > CL_MAX_KI || smem < need)
       return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err =
-        products ? dispatch_cluster<true>(ki, gxf, cxf, h0f, wgh, wch, maskf,
+        products ? dispatch_cluster<true>(ki, gxf, cxf, h0f, wgh, wch, maskv,
                                           outf, T, N, H, blocks, hs, rows,
                                           smem, s)
-                 : dispatch_cluster<false>(ki, gxf, cxf, h0f, wgh, wch, maskf,
+                 : dispatch_cluster<false>(ki, gxf, cxf, h0f, wgh, wch, maskv,
                                            outf, T, N, H, blocks, hs, rows,
                                            smem, s);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -688,6 +722,6 @@ extern "C" int gru_recurrence(const void* gx, const void* cx, const void* h0,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   gru_recurrent_kernel<<<N, REC_THREADS, bytes, s>>>(
-      gxf, cxf, h0f, wgh, wch, maskf, outf, T, N, H, nsl_g, nsl_c);
+      gxf, cxf, h0f, wgh, wch, maskv, outf, T, N, H, nsl_g, nsl_c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,15 @@ emitted output is zero (``dynamic_rnn(sequence_length=...)``).  Weights are
 in flax's layout, ``wg`` [D + H, 2H] and ``wc`` [D + H, H]; the adapters
 below transpose ``nn.Linear``'s [out, in].
 
+The dtypes are those the JAX package's ``gru_sequence`` takes
+(:func:`check_dtypes`): ``x`` and ``h0`` float32, each of ``wg``, ``bg``,
+``wc``, ``bc`` and the mask float32 or bf16, the output float32.  The
+products of bf16 operands are float32 (JAX's ``preferred_element_type``,
+``tacotron_tpu/ops/pallas/gru.py:72-82``): the plain version upcasts them,
+which is exact, and the kernel converts each element as it loads it, with
+no float32 copy of the tensor.  Each gradient comes back in its input's
+dtype, as ``jax.grad`` gives it.
+
 :func:`gru_sequence` is differentiable: its forward launches the kernel for
 CUDA tensors, on the route :func:`cluster_plan` picks from the shapes (a
 thread-block cluster holding the recurrent weights in shared memory, or,
@@ -37,20 +46,52 @@ from ..rnn import reverse_sequence
 from . import _build
 
 
+#: the operands that may be bf16, in the order of their bits in the C
+#: calls' ``dtypes`` (kOperand* in csrc/gru.cu)
+BF16_OPERANDS = ("wg", "bg", "wc", "bc", "mask")
+
+
+def check_dtypes(x_tnd, h0, wg, bg, wc, bc, mask_tn) -> None:
+    """Raise ``ValueError`` on dtypes the JAX package's ``gru_sequence``
+    refuses.  ``x`` and ``h0`` must be float32: its kernel stores the
+    float32 state into an output of ``x``'s dtype and ``h0`` into a float32
+    scratch (``tacotron_tpu/ops/pallas/gru.py:90``, ``:61``), and a bf16
+    one fails to trace.  Weights, biases and mask may be float32 or bf16."""
+    for name, t in (("x", x_tnd), ("h0", h0)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"GRU {name} must be float32, not {t.dtype}")
+    for name, t in zip(BF16_OPERANDS, (wg, bg, wc, bc, mask_tn)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"GRU {name} must be float32 or bfloat16, not "
+                             f"{t.dtype}")
+
+
+def dtype_bits(**operands: torch.Tensor) -> int:
+    """The C calls' ``dtypes``: the bit of each operand, named as in
+    :data:`BF16_OPERANDS`, that is bf16."""
+    return sum(1 << BF16_OPERANDS.index(name)
+               for name, t in operands.items() if t.dtype == torch.bfloat16)
+
+
 def gru_reference_scan(x_tnd: torch.Tensor, h0: torch.Tensor,
                        wg: torch.Tensor, bg: torch.Tensor,
                        wc: torch.Tensor, bc: torch.Tensor,
                        mask_tn: torch.Tensor) -> torch.Tensor:
-    """Plain version: [T, N, D] inputs -> [T, N, H] outputs."""
+    """Plain version: [T, N, D] inputs -> [T, N, H] float32 outputs.  bf16
+    weights and biases are upcast (exactly) inside every step, as JAX's
+    scan body promotes them, so that autograd rounds each step's gradient
+    to bf16 and sums the steps in bf16, as ``jax.grad`` of the scan does."""
     T, N, _ = x_tnd.shape
     H = h0.shape[1]
+    mask_tn = mask_tn.float()
     h = h0
     ys = []
     for t in range(T):
         x_t = x_tnd[t]
-        gates = torch.sigmoid(torch.cat([x_t, h], dim=-1) @ wg + bg)
+        wg_t, bg_t, wc_t, bc_t = (p.float() for p in (wg, bg, wc, bc))
+        gates = torch.sigmoid(torch.cat([x_t, h], dim=-1) @ wg_t + bg_t)
         r, u = gates[:, :H], gates[:, H:]
-        c = torch.tanh(torch.cat([x_t, r * h], dim=-1) @ wc + bc)
+        c = torch.tanh(torch.cat([x_t, r * h], dim=-1) @ wc_t + bc_t)
         h_new = u * h + (1.0 - u) * c
         m = mask_tn[t][:, None]
         ys.append(h_new * m)
@@ -133,18 +174,18 @@ def _lib():
     lib = _build.load("gru")
     if lib.gru_recurrence.argtypes is None:
         lib.gru_projection.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gru_projection.restype = ctypes.c_int
         lib.gru_recurrence.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.gru_recurrence.restype = ctypes.c_int
     return lib
 
 
 def gru_input_projection(x, wg, bg, wc, bc):
     """The input halves of every step on the card, biases included:
-    (gx [T, N, 2H], cx [T, N, H]).  Contiguous float32 CUDA tensors, shapes
-    checked by the caller."""
+    (gx [T, N, 2H], cx [T, N, H]), float32.  Contiguous CUDA tensors of the
+    dtypes :func:`check_dtypes` allows, shapes checked by the caller."""
     T, N, D = x.shape
     H = bc.shape[0]
     gx = torch.empty((T, N, 2 * H), dtype=torch.float32, device=x.device)
@@ -152,15 +193,16 @@ def gru_input_projection(x, wg, bg, wc, bc):
     ptr = _build.ptr
     _build.check(_lib().gru_projection(
         ptr(x), ptr(wg), ptr(bg), ptr(wc), ptr(bc), ptr(gx), ptr(cx), T, N,
-        D, H, _build.stream_ptr(x.device)), "gru_projection")
+        D, H, dtype_bits(wg=wg, bg=bg, wc=wc, bc=bc),
+        _build.stream_ptr(x.device)), "gru_projection")
     return gx, cx
 
 
 def gru_recurrence(gx, cx, h0, wg, wc, mask, products: bool = True):
     """The recurrence over the input halves on the card, on the route
-    :func:`cluster_plan` picks: [T, N, H].  ``products=False`` runs the
-    cluster schedule with its products compiled out (zero sums), to time
-    its latency floor; it is refused on the streaming route."""
+    :func:`cluster_plan` picks: [T, N, H] float32.  ``products=False`` runs
+    the cluster schedule with its products compiled out (zero sums), to
+    time its latency floor; it is refused on the streaming route."""
     T, N, H2 = gx.shape
     H = H2 // 2
     D = wg.shape[0] - H
@@ -171,13 +213,16 @@ def gru_recurrence(gx, cx, h0, wg, wc, mask, products: bool = True):
     _build.check(_lib().gru_recurrence(
         ptr(gx), ptr(cx), ptr(h0), ptr(wg), ptr(wc), ptr(mask), ptr(out), T,
         N, D, H, blocks, plan.hs, plan.rows, plan.smem_bytes, int(products),
-        _build.stream_ptr(gx.device)), "gru_recurrence")
+        dtype_bits(wg=wg, wc=wc, mask=mask), _build.stream_ptr(gx.device)),
+        "gru_recurrence")
     return out
 
 
 def _gru_kernel(x, h0, wg, bg, wc, bc, mask) -> torch.Tensor:
     """Launch ``csrc/gru.cu`` on CUDA tensors: the input projections of
-    every step, then the recurrence on the route of :func:`cluster_plan`."""
+    every step, then the recurrence on the route of :func:`cluster_plan`.
+    bf16 operands are passed as they are (``.contiguous()`` copies only a
+    strided tensor, in its own dtype)."""
     T, N, D = x.shape
     H = h0.shape[1]
     if h0.shape != (N, H) or wg.shape != (D + H, 2 * H) \
@@ -187,10 +232,10 @@ def _gru_kernel(x, h0, wg, bg, wc, bc, mask) -> torch.Tensor:
             f"bad GRU shapes: x {tuple(x.shape)}, h0 {tuple(h0.shape)}, wg "
             f"{tuple(wg.shape)}, bg {tuple(bg.shape)}, wc {tuple(wc.shape)}, "
             f"bc {tuple(bc.shape)}, mask {tuple(mask.shape)}")
+    check_dtypes(x, h0, wg, bg, wc, bc, mask)
     args = [t.contiguous() for t in (x, h0, wg, bg, wc, bc, mask)]
-    for t in args:
-        if t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"GRU tensors must be float32 on {x.device}")
+    if any(t.device != x.device for t in args):
+        raise ValueError(f"GRU tensors must all be on {x.device}")
     x, h0, wg, bg, wc, bc, mask = args
     if T == 0 or N == 0:
         return torch.empty((T, N, H), dtype=torch.float32, device=x.device)
@@ -227,9 +272,10 @@ class GRUSequence(torch.autograd.Function):
 def gru_sequence(x_tnd: torch.Tensor, h0: torch.Tensor, wg: torch.Tensor,
                  bg: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor,
                  mask_tn: torch.Tensor) -> torch.Tensor:
-    """GRU over [T, N, D] -> [T, N, H]; ``mask_tn`` is float [T, N] (1.0
-    inside the sequence).  ``gru_sequence.launches`` counts kernel
-    launches."""
+    """GRU over [T, N, D] -> [T, N, H] float32; ``mask_tn`` is float [T, N]
+    (1.0 inside the sequence).  The dtypes of :func:`check_dtypes`, on
+    either device.  ``gru_sequence.launches`` counts kernel launches."""
+    check_dtypes(x_tnd, h0, wg, bg, wc, bc, mask_tn)
     return GRUSequence.apply(x_tnd, h0, wg, bg, wc, bc, mask_tn)
 
 

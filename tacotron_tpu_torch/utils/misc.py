@@ -1,7 +1,8 @@
 """Misc helpers: moving-average window, run-dir naming, parallel map,
 boolean flags, git provenance: a copy of the JAX package's
-``utils/misc.py``; and the card's name and power limit (:func:`card_line`),
-which the port writes beside every number it measures on a card."""
+``utils/misc.py``; and the card's name and power limit (:func:`card_line`,
+:func:`device_line`), which the port writes beside every number it
+measures on a card."""
 
 from __future__ import annotations
 
@@ -103,3 +104,15 @@ def card_line(index: int = 0) -> str:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout
     return out.strip().splitlines()[index]
+
+
+def device_line(device) -> str:
+    """The device a study reports: :func:`card_line` of the card for a CUDA
+    device, else the device's name (``cpu``)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return str(device)
+    return card_line(device.index if device.index is not None
+                     else torch.cuda.current_device())

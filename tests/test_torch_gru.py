@@ -6,7 +6,11 @@ flax by the weight bridge, against JAX's adapter and the port's ``BiGRU``.
 
 Everything is float32 on both sides; only summation order differs:
 1e-5 for the forward, 1e-4 for the gradients (as the JAX kernel's own
-tests)."""
+tests).  With bf16 weights, biases and mask (the inputs JAX's kernel also
+takes), the forward is still float32 products of exactly upcast operands:
+1e-5.  Their gradients are float32 sums rounded to bf16 on both sides, so
+two sums a few float32 ulps apart may round one bf16 ulp apart: 2^-7 of
+the value (a bf16 ulp is 2^-8 to 2^-7 of it), plus the float32 bound."""
 
 import jax
 import jax.numpy as jnp
@@ -163,3 +167,156 @@ def test_gru_edge_shapes_and_devices():
                           torch.empty((9, 5), device="meta"),
                           torch.empty((5,), device="meta"),
                           torch.empty((2, 3), device="meta"))
+
+
+#: the operands given in bf16, by case
+BF16_CASES = {"all": ("wg", "bg", "wc", "bc", "mask"),
+              "weights": ("wg", "wc"), "biases_mask": ("bg", "bc", "mask")}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+@pytest.mark.parametrize("lengths", [[6, 3, 0], None])
+def test_gru_bf16_operands_match_jax(case, lengths):
+    """bf16 weights, biases and mask with float32 ``x`` and ``h0``, as JAX's
+    ``gru_sequence`` takes them: the forward against JAX's kernel in
+    interpret mode (float32 out), the six gradients' dtypes equal to
+    ``jax.grad``'s (bf16 for a bf16 input) and their values within one
+    bf16 ulp."""
+    rng = np.random.default_rng(6)
+    N, T, D, H = 3, 6, 8, 8
+    x = rng.standard_normal((N, T, D)).astype(np.float32)
+    h0 = rng.standard_normal((N, H)).astype(np.float32)
+    w = dict(zip(("wg", "bg", "wc", "bc"), _weights(rng, D, H)))
+    mask = np.ones((T, N), np.float32)
+    if lengths is not None:
+        mask = (np.arange(T)[:, None] < np.asarray(lengths)[None]).astype(
+            np.float32)
+    ops = dict(w, mask=mask)
+    bf16 = BF16_CASES[case]
+    jops = {k: jnp.asarray(v, jnp.bfloat16 if k in bf16 else jnp.float32)
+            for k, v in ops.items()}
+    tops = {k: torch.from_numpy(v).to(
+        torch.bfloat16 if k in bf16 else torch.float32)
+        for k, v in ops.items()}
+    # the same bf16 values on both sides
+    for k in bf16:
+        np.testing.assert_array_equal(
+            tops[k].float().numpy(), np.asarray(jops[k], np.float32))
+    jx = jnp.asarray(x.transpose(1, 0, 2))
+    tx = torch.from_numpy(x.transpose(1, 0, 2).copy())
+
+    def jloss(x_, h_, wg, bg, wc, bc):
+        return jnp.sum(jgru.gru_sequence(x_, h_, wg, bg, wc, bc,
+                                         jops["mask"], True) ** 2)
+
+    jargs = (jx, jnp.asarray(h0), jops["wg"], jops["bg"], jops["wc"],
+             jops["bc"])
+    want = jgru.gru_sequence(*jargs, jops["mask"], True)
+    assert want.dtype == jnp.float32
+    want_grads = jax.grad(jloss, argnums=tuple(range(6)))(*jargs)
+
+    targs = [t.requires_grad_() for t in (
+        tx, torch.from_numpy(h0), tops["wg"], tops["bg"], tops["wc"],
+        tops["bc"])]
+    before = tgru.gru_sequence.launches
+    got = tgru.gru_sequence(*targs, tops["mask"])
+    assert tgru.gru_sequence.launches == before   # CPU: the plain scan
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    grads = torch.autograd.grad((got ** 2).sum(), targs)
+    assert [str(g.dtype).split(".")[-1] for g in grads] == \
+        [str(j.dtype) for j in want_grads]
+    assert [g.dtype for g in grads[2:]] == [
+        torch.bfloat16 if k in bf16 else torch.float32
+        for k in ("wg", "bg", "wc", "bc")]
+    for g, j in zip(grads, want_grads):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(j, np.float32),
+                                   rtol=2.0 ** -7 + 1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("which", ["x", "h0"])
+def test_gru_bf16_state_refused_by_both(which):
+    """A bf16 ``x`` or ``h0`` fails to trace in JAX (its kernel stores
+    float32 into the bf16 output, or the bf16 state into its float32
+    scratch: "Invalid dtype for `swap`"), and the port refuses it with
+    ``ValueError`` on every device."""
+    rng = np.random.default_rng(7)
+    N, T, D, H = 2, 4, 6, 5
+    x = rng.standard_normal((T, N, D)).astype(np.float32)
+    h0 = rng.standard_normal((N, H)).astype(np.float32)
+    w = _weights(rng, D, H)
+    mask = np.ones((T, N), np.float32)
+    jx, jh = jnp.asarray(x), jnp.asarray(h0)
+    tx, th = torch.from_numpy(x), torch.from_numpy(h0)
+    if which == "x":
+        jx, tx = jx.astype(jnp.bfloat16), tx.bfloat16()
+    else:
+        jh, th = jh.astype(jnp.bfloat16), th.bfloat16()
+    with pytest.raises(ValueError, match="swap"):
+        jgru.gru_sequence(jx, jh, *map(jnp.asarray, w), jnp.asarray(mask),
+                          True)
+    with pytest.raises(ValueError, match=f"{which} must be float32"):
+        tgru.gru_sequence(tx, th, *_t(*w), torch.from_numpy(mask))
+    meta = [torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for t in (tx, th, *_t(*w), torch.from_numpy(mask))]
+    with pytest.raises(ValueError, match=f"{which} must be float32"):
+        tgru.gru_sequence(*meta)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tgru.gru_sequence(*_t(x, h0, *w[:3]),
+                          torch.from_numpy(w[3]).half(),
+                          torch.from_numpy(mask))
+
+
+def test_gru_wrapper_passes_bf16_operands_uncopied(monkeypatch):
+    """The CUDA path's wrapper (``_gru_kernel``) hands the bf16 weights,
+    biases and mask to the C calls as they are, their types in the
+    ``dtypes`` bits (kOperand* of csrc/gru.cu), and makes no copy of any
+    tensor (no ``_to_copy`` or ``copy_`` among the aten operations it
+    runs): the library is replaced by a recorder, so this runs on the
+    CPU."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder:
+        def __init__(self):
+            self.calls = {}
+
+        def __getattr__(self, name):
+            def call(*args):
+                self.calls[name] = args
+                return 0
+            return call
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    lib = Recorder()
+    monkeypatch.setattr(tgru, "_lib", lambda: lib)
+    monkeypatch.setattr(tgru._build, "stream_ptr", lambda device: None)
+    rng = np.random.default_rng(8)
+    T, N, D, H = 5, 3, 8, 16
+    x = torch.from_numpy(rng.standard_normal((T, N, D)).astype(np.float32))
+    h0 = torch.zeros((N, H))
+    wg, bg, wc, bc = (t.bfloat16() for t in _t(*_weights(rng, D, H)))
+    mask = torch.ones((T, N), dtype=torch.bfloat16)
+    before = tgru.gru_sequence.launches
+    with Ops() as ops:
+        out = tgru._gru_kernel(x, h0, wg, bg, wc, bc, mask)
+    assert tgru.gru_sequence.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (T, N, H)
+    assert not [n for n in ops.names if "copy" in n], ops.names
+    proj, rec = lib.calls["gru_projection"], lib.calls["gru_recurrence"]
+    assert [p.value for p in proj[:5]] == [
+        t.data_ptr() for t in (x, wg, bg, wc, bc)]
+    assert [p.value for p in rec[2:6]] == [
+        t.data_ptr() for t in (h0, wg, wc, mask)]
+    assert proj[11] == 1 + 2 + 4 + 8          # wg, bg, wc, bc
+    assert rec[16] == 1 + 4 + 16              # wg, wc, mask
+    assert tgru.dtype_bits(wg=x, bg=bg) == 2

@@ -25,7 +25,8 @@ bad = sorted(m for m in sys.modules
 print(len(names))
 assert not bad, bad
 assert {f"tacotron_tpu_torch.studies.{m}" for m in (
-    "make_synthetic_corpus", "convergence_study", "mulaw_quality")
+    "make_synthetic_corpus", "convergence_study", "mulaw_quality",
+    "serving_load", "synth_sweep", "bf16_study", "batch_study")
     } <= set(names), names
 """
 
