@@ -6,10 +6,12 @@
 1. Device: requires CUDA, prints the card's name and power limit, turns TF32
    off for matmuls and cuDNN convolutions.
 2. Build: compiles every kernel of ``tacotron_tpu_torch/csrc`` with nvcc for
-   sm_90a, one process per source, all at once (four libraries), and
-   prints a ``[sass]`` line counting each library's wgmma (``HGMMA``),
-   TMA-load (``UTMALDG``), cluster-barrier (``UCGABAR``), distributed
-   shared-memory store (``STAS``) and mbarrier (``SYNCS``) instructions;
+   sm_90a, one process per source, all at once (four libraries; K4's, by
+   far the slowest to compile, is waited for only after phase 4, which
+   does not run it), and prints a ``[sass]`` line counting each library's
+   wgmma (``HGMMA``), TMA-load (``UTMALDG``), cluster-barrier
+   (``UCGABAR``), distributed shared-memory store (``STAS``) and mbarrier
+   (``SYNCS``) instructions;
    the K1 and K3 libraries must have the first two, the K4 library the
    last three.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
@@ -46,10 +48,12 @@
    ``dsp/host.py``): (a) one train step at batch 4 on the card and on the
    CPU from the same weights and batch (``dropout_prob=0``): metrics,
    gradients and BatchNorm statistics agree; (b) ``features_from_waveform``
-   on the card and on the CPU agree; (c) ``train()`` for 20 steps at batch
-   16 with evals, sample dumps, checkpoints and a ``torch.profiler`` trace
-   of steps 10-15, then a resume to step 30: the loss falls, and
-   ``metrics.jsonl`` carries the JAX driver's keys; (d) 5 steps from a
+   on the card and on the CPU agree; (c) ``train()`` for 10 steps at batch
+   16 with evals every 5 steps, sample dumps and checkpoints, then a
+   resume to step 15 with a ``torch.profiler`` trace of steps 11-15 (20
+   steps and a resume to 30 until phase 14 came; cut for time): the loss
+   falls, and ``metrics.jsonl`` carries the JAX driver's keys; (d) 5
+   steps from a
    device-resident corpus with on-device features; (e)
    ``Synthesizer.load`` of the run directory synthesizes through K1.  A
    ``[train]`` line gives the median step time, target frames per second,
@@ -86,19 +90,17 @@
    programs, then phase 7 (e)'s requests under a trace (K1 on the short
    ones, K2 on the long POST), replayed; (d) ``train(..., prewarm=True)``
    for 10 steps and a resume to 15 on phase 6's corpus and seed: every
-   step of a bucket shape replays its graph once; against one more eager
-   run of the same depth and resume point, every step's loss and the
-   parameters at step 15, and against phase 6's run the first 10 steps'
-   losses and the parameters at step 10, each within twice the spread of
-   the two eager runs over their common first 10 steps or 1e-5; a falling
+   step of a bucket shape replays its graph once; against phase 6's eager
+   run, which resumes at step 10 too, every step's loss and the
+   parameters at steps 10 and 15, within 1e-5 (relative); a falling
    loss; and eager
    against replayed steps on the same 4 batches (step time, target
    frames/s, peak memory) with the idle share of steps 11-15.  A
    ``[graphs]`` line sums it up.
 9. Several processes (``parallel/``), on phase 6's corpus with every batch
-   padded to the corpus maxima (one shape).  (a) ``train()`` for 10 steps
+   padded to the corpus maxima (one shape).  (a) ``train()`` for 5 steps
    at batch 16 under an NCCL group of world size 1 (the torchrun
-   environment on a free port) against the same 10 steps without a plan:
+   environment on a free port) against the same 5 steps without a plan:
    losses and parameters bit-equal or within 1e-6 relative; then with
    ``prewarm``: every step replays the one graph, equal to the eager run.
    (b) Two ranks on the one card (this script run twice as a worker, a
@@ -156,8 +158,8 @@
    1 the data-parallel bf16 step equal to the plain one over 2 steps; (d)
    ``python -m tacotron_tpu_torch.train --preset tpu --num_steps 3`` on a
    corpus of phase 6's writer with 64 utterances a speaker (the preset's
-   batch of 32 is also each speaker's held-out test set): exit 0, its
-   ``config.json`` bf16 at batch 32.  A ``[bf16]``
+   batch of 32 is also each speaker's held-out test set), run beside
+   phase 14: exit 0, its ``config.json`` bf16 at batch 32.  A ``[bf16]``
    line sums it up; (b)'s launches are the kernels' ``launches_bf16``.
    There is no fallback: a bf16 failure fails the script.
 12. Convergence and checkpoints (``studies/``, ``train/checkpoint.py``):
@@ -167,15 +169,17 @@
    write takes to become durable, the replayed train step alone and with
    an asynchronous write in flight, and a checkpoint saved while replayed
    steps update the state in place read back bit-equal to the state at
-   its step; (b) ``python -m tacotron_tpu_torch.studies.convergence_study``
-   twice on one ``--work`` (a 48-a-speaker melody corpus, the preset's
-   batch 32, bf16): ``--wall_budget_s 15``, then 10 steps more, which
-   resume from the first call's checkpoint; both exit 0 and write the
-   report's keys; the study's held-out evaluation run in this process on
-   that run, each call's K1/K2 launches held to the counts its
-   iterations, ``_budget`` and ``fused_supported`` give, the kernel that
-   ran held against its plain version at each chunk's shape; and
-   ``python -m tacotron_tpu_torch.studies.mulaw_quality`` on the run;
+   its step; (b) ``python -m
+   tacotron_tpu_torch.studies.convergence_study`` twice on one ``--work``
+   (a 48-a-speaker melody corpus, the preset's batch 32, bf16):
+   ``--wall_budget_s 5`` alone on the card, then ``python -m
+   tacotron_tpu_torch.studies.mulaw_quality`` on its run, then (beside
+   phase 14) 10 steps more, which resume from the first call's
+   checkpoint; both calls exit 0 and write the report's keys; the study's
+   held-out evaluation run in this process on the resumed run, each
+   call's K1/K2 launches held to the counts its iterations, ``_budget``
+   and ``fused_supported`` give, the kernel that ran held against its
+   plain version at each chunk's shape;
    (c) ``token_tone_accuracy`` of ``melody_wav`` itself reads 1.0 with a
    wrong-token rate of 0 for every held-out sentence, both speakers,
    ``melody`` and ``melody_var``.  A ``[convergence]`` line sums it up;
@@ -188,20 +192,41 @@
    no copy in the wrapper (no ``copy`` among its aten operations), the
    output within 1e-4 of the plain version on the same bf16 tensors and
    the bf16 weight gradients within 2^-7 of the largest, timed beside
-   float32 K4 on the same inputs; (b) ``run_load_test`` on phase 4's
-   synthesizer, prewarmed, levels 1 and 4 with 4 requests, ``max_batch``
-   4 and 1: every call replayed, no coalescing without concurrency, and
-   the replays' K1/K2 launches in a trace of the run held to the count the
-   calls' texts give (the load texts' 200-step budget: K2), the kernel
-   against its plain version at each chunk's shape; (c) one ``pallas``
-   point of the sweep at batch 16 (30 momentum iterations): K3 30 and K2
-   31 launches in its eager call, both kernels against their plain
-   versions at its shapes, replay and eager times; (d) ``python -m
-   tacotron_tpu_torch.studies.bf16_study --steps 10`` and ``batch_study
-   --samples 640`` (10-40 steps an arm), started together, exit 0, the
-   reports' device line and keys.  A ``[studies]`` line sums it up; the
-   kernels line gains K4's bf16-weight form and ``launches_studies``.
-14. Prints the kernels line, the card line, and last the result line
+   float32 K4 on the same inputs; (b) the serving load, moved into
+   phase 14; (c) one ``pallas`` point of the sweep at batch 16 (30
+   momentum iterations): K3 30 and K2 31 launches in its eager call,
+   both kernels against their plain versions at its shapes, replay and
+   eager times; (d) ``python -m tacotron_tpu_torch.studies.bf16_study
+   --steps 10`` and ``batch_study --samples 640`` (10-40 steps an arm),
+   started together beside phase 14 (no metric reads their times), exit
+   0, the reports' device line and keys.  A ``[studies]`` line
+   sums it up; the kernels line gains K4's bf16-weight form and
+   ``launches_studies``.
+14. The benchmark harness (``tacotron_tpu_torch/bench.py``): its ``run`` in
+   this process at full width (``Config()``, random weights from seed 0),
+   batch 32 x 50 steps, training at batch 16 and the preset at 32 over
+   192 frames, with small counts (one warm-up, 2 repetitions, a chain of
+   3, 2 fresh batches, load levels 1 and 4 with 4 requests, ``max_batch``
+   4 and 1), beside phase 11 (d)'s CLI, phase 12 (b)'s second call and
+   phase 13 (d)'s two studies, whose times no metric reads (nor are
+   phase 14's read: the bench's own run is alone on the card).  The
+   record holds every key of the committed ``BENCH_DETAIL.json`` through
+   ``RENAMED``, every number finite, the card line as its device and a null
+   scan unroll; the headline is at most 200 bytes.  The replayed raw and
+   fast programs give their eager first calls' waveforms on the same inputs
+   (within 1e-6 of the peak).  Each section's first call launched K1 and K2
+   as its texts, steps and vocoder give (the raw program K1 240, the fast
+   one 120; the adaptive-budget sections K2 31 a vocoder chunk); the
+   counters over the run saw those first calls and the eager rows' timed
+   calls and nothing else (the captures' launches counted apart): every
+   other timed call replayed.  The load section (phase 13 (b) until this
+   phase came): every call replayed, no coalescing without concurrency, and
+   the replays' K2 launches in a trace of it, 31 a call as the calls' texts
+   give.  Each kernel against its plain version at every (padded batch,
+   frames) the run gave it: the raw and fast programs' whole batch, each
+   section's vocoder chunks and the load's.  A ``[bench]`` line sums it up;
+   the kernels line gains ``launches_bench``.
+15. Prints the kernels line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits nonzero and prints no result line.
@@ -209,6 +234,8 @@ Any failure raises, exits nonzero and prints no result line.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import faulthandler
 import json
 import statistics
@@ -236,6 +263,16 @@ KOREAN = ["안녕하세요. 만나서 반갑습니다.",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: when the script started (``stamp``'s zero)
+T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """The script's seconds so far, after ``what``: where its time limit
+    goes."""
+    log(f"[time] {what} done at {time.perf_counter() - T_START:.1f} s")
 
 
 def require(ok, msg: str) -> None:
@@ -394,7 +431,7 @@ def check_k1(dev, rng):
     xo = bf16_randn(rng, (rows, 2 * NO), dev)
     gemm_library_ms = time_ms(lambda: (u @ we_t.T, v @ wo_t.T, xe @ we.T,
                                        xo @ wo.T))
-    flops = 8 * B * T * M * (ne + no)
+    flops = gl_fused.iteration_flops(B * T, cfg.n_fft)
     nbytes = (2 * B * NBa * cfg.hop_length * 4      # signal in and out
               + B * T * (ne + no) * 4               # target magnitudes
               + 2 * M * (ne + no) * 2               # DFT matrices, bf16
@@ -1056,51 +1093,54 @@ def train_phase(dev, tmp: str) -> dict:
     from tacotron_tpu_torch.utils import read_metrics
 
     t_phase = time.perf_counter()
-    cfg = train_config(decay_learning_rate_mode=1, test_interval=10,
+    cfg = train_config(decay_learning_rate_mode=1, test_interval=5,
                        checkpoint_interval=10)
     dirs = write_synthetic_corpus(os.path.join(tmp, "corpus"), cfg)
     a = check_train_step_card_vs_cpu(dev, dirs)
     b = check_features_card_vs_cpu(dev, dirs)
 
-    # (c) the driver: 20 steps, then a resume to 30
+    # (c) the driver: GRAPH_FIRST steps, then a resume to GRAPH_STEPS with
+    # steps 11-15 traced: phase 8 (d)'s eager reference, whose graph run
+    # resumes at GRAPH_FIRST too
     run = os.path.join(tmp, "run")
     samples = os.path.join(run, "samples")
     profile = os.path.join(tmp, "profile")
     t0 = time.perf_counter()
-    state = train(run, dirs, cfg, num_steps=20, device=dev,
-                  test_dump_dir=samples, profile_dir=profile)
-    require(state.step == 20, f"(c) first run ended at {state.step}")
-    state = train(run, dirs, cfg, num_steps=30, device=dev,
-                  test_dump_dir=samples)
+    for steps, trace in ((GRAPH_FIRST, None), (GRAPH_STEPS, profile)):
+        state = train(run, dirs, cfg, num_steps=steps, device=dev,
+                      test_dump_dir=samples, profile_dir=trace)
+        require(state.step == steps, f"(c) a run to step {steps} ended at "
+                                     f"{state.step}")
     wall_c = time.perf_counter() - t0
-    require(state.step == 30, f"(c) resumed run ended at {state.step}")
     records = read_metrics(os.path.join(run, "metrics.jsonl"))
     trains = [r for r in records if r["kind"] == "train"]
     evals = [r for r in records if r["kind"] == "eval"]
-    require([r["step"] for r in trains] == list(range(1, 31)),
+    require([r["step"] for r in trains] == list(range(1, GRAPH_STEPS + 1)),
             f"(c) train steps {[r['step'] for r in trains]}")
     require(all(set(r) == TRAIN_KEYS for r in trains),
             f"(c) metric keys {sorted(trains[0])}")
     require(all(np.isfinite(r["loss"]) for r in trains),
             "(c) a loss is not finite")
-    require([r["step"] for r in evals] == [10, 20, 30],
+    require([r["step"] for r in evals] == [5, 10, 15],
             f"(c) eval steps {[r['step'] for r in evals]}")
     first = float(np.mean([r["loss"] for r in trains[:5]]))
-    last = float(np.mean([r["loss"] for r in trains[25:]]))
+    last = float(np.mean([r["loss"] for r in trains[-5:]]))
     require(last < first, f"(c) loss did not fall: steps 1-5 {first}, "
-                          f"26-30 {last}")
-    require(checkpoint_steps(run) == [10, 20, 30],
+                          f"{GRAPH_STEPS - 4}-{GRAPH_STEPS} {last}")
+    # every 10 steps, and where the resumed call ended
+    require(checkpoint_steps(run) == [10, 15],
             f"(c) checkpoints {checkpoint_steps(run)}")
     wavs = sorted(n for n in os.listdir(samples) if n.endswith(".wav"))
-    require(wavs == [f"step{s:09d}.wav" for s in (10, 20, 30)],
+    require(wavs == [f"step{s:09d}.wav" for s in (5, 10, 15)],
             f"(c) sample dumps {wavs}")
     with open(os.path.join(profile, "summary.json")) as fh:
         prof = json.load(fh)
     require(prof["device_kernels"] > 0,
             "(c) the profiler saw no device kernel in steps 11-15")
-    log(f"[train] (c) driver: 30 steps (20, then resumed to 30) in "
-        f"{wall_c:.1f} s, loss {first:.4f} (steps 1-5) -> {last:.4f} "
-        f"(26-30), evals at 10/20/30, checkpoints "
+    log(f"[train] (c) driver: {GRAPH_STEPS} steps ({GRAPH_FIRST}, then "
+        f"resumed) in {wall_c:.1f} s, loss {first:.4f} (steps 1-5) -> "
+        f"{last:.4f} ({GRAPH_STEPS - 4}-{GRAPH_STEPS}), evals at 5/10/15, "
+        f"checkpoints "
         f"{checkpoint_steps(run)}, steps 11-15 traced: "
         f"{prof['device_kernels']} kernels, device busy "
         f"{prof['device_busy_ms']:.1f} ms of {prof['wall_s']:.3f} "
@@ -1136,7 +1176,7 @@ def train_phase(dev, tmp: str) -> dict:
     require(k1 > 0, "(e) the trained checkpoint's synthesis launched "
                     "no fused Griffin-Lim kernel")
     audio = check_waveforms(res, cfg.audio.hop_length, "(e)")
-    log(f"[train] (e) Synthesizer.load(run dir) at step 30: one "
+    log(f"[train] (e) Synthesizer.load(run dir) at step {GRAPH_STEPS}: one "
         f"sentence, 50 steps, fast vocoder: {audio} samples, K1 "
         f"launches {k1}")
     wall = time.perf_counter() - t_phase
@@ -1719,8 +1759,14 @@ def run_losses_and_params(run: str, steps=None, at=None):
 
 
 #: phase 8 (d)'s runs: this many steps, then a resume to GRAPH_STEPS (20
-#: and 30 until phase 13 came; cut for time)
+#: and 30 until phase 13 came; cut for time); phase 6 (c) resumes at the
+#: same steps
 GRAPH_FIRST, GRAPH_STEPS = 10, 15
+#: graph run against eager: the largest loss difference over the loss and
+#: parameter difference over the largest parameter (phase 8 (d) held them
+#: to twice the spread of two eager runs, or this where it was smaller;
+#: the spread was 0 in every run)
+GRAPH_LIMIT = 1e-5
 
 
 def run_spread(a, b, steps: int = GRAPH_STEPS) -> tuple:
@@ -1738,10 +1784,10 @@ def run_spread(a, b, steps: int = GRAPH_STEPS) -> tuple:
 def train_graphs(dev, trained: dict, tmp: str) -> dict:
     """Phase 8 (d): ``train(..., prewarm=True)`` for ``GRAPH_FIRST`` steps
     and a resume to ``GRAPH_STEPS`` on phase 6's corpus, config and seed,
-    against one more eager run of the same depth and resume point (every
-    loss, the parameters at ``GRAPH_STEPS``) and phase 6's eager run (the
-    first ``GRAPH_FIRST`` losses, the parameters at ``GRAPH_FIRST``); then
-    eager and replayed steps timed on the same batches."""
+    against phase 6's eager run, which resumes at ``GRAPH_FIRST`` too
+    (every loss to ``GRAPH_STEPS``, the parameters at ``GRAPH_FIRST`` and
+    ``GRAPH_STEPS``); then eager and replayed steps timed on the same
+    batches."""
     import os
 
     from tacotron_tpu_torch.data import DataFeeder
@@ -1753,13 +1799,8 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
                                                make_train_step)
 
     cfg, dirs = trained["config"], trained["corpus"]
-    eager_run = os.path.join(tmp, "run_eager2")
     graph_run = os.path.join(tmp, "run_graphs")
     profile = os.path.join(tmp, "profile_graphs")
-    t0 = time.perf_counter()
-    train(eager_run, dirs, cfg, num_steps=GRAPH_FIRST, device=dev)
-    train(eager_run, dirs, cfg, num_steps=GRAPH_STEPS, device=dev)
-    eager_s = time.perf_counter() - t0
     shapes = DataFeeder(dirs, cfg, data_type="train",
                         seed=123).bucket_shapes()
     # every step of the graph run: its padded (tokens, frames) and whether
@@ -1802,30 +1843,23 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
             and text.count("prewarm done") == 2,
             f"(d) the graph run's log lacks the prewarm lines for "
             f"{len(shapes)} shapes")
-    # eager2 and the graph run resume at GRAPH_FIRST alike (one data
-    # order): they are compared over every step and on their parameters
-    # at GRAPH_STEPS.  Phase 6's run went on past GRAPH_FIRST in one call
-    # (another data order), so it meets the other two over their common
-    # first steps and parameters at GRAPH_FIRST; its distance to eager2
-    # there is the eager spread (atomics in the backward may part two
-    # eager runs) that sets the limit
-    first_run, eager2_head, graphs_head = (
+    # phase 6's run and the graph run resume at GRAPH_FIRST alike (one
+    # data order): every step's loss, the parameters where each call ended
+    eager, graphs = (run_losses_and_params(run, GRAPH_STEPS, GRAPH_STEPS)
+                     for run in (trained["run_dir"], graph_run))
+    err = run_spread(eager, graphs)
+    require(max(err) <= GRAPH_LIMIT,
+            f"(d) graph run against phase 6 over {GRAPH_STEPS} steps: loss "
+            f"{err[0]}, parameters at {GRAPH_STEPS} {err[1]} (limit "
+            f"{GRAPH_LIMIT})")
+    eager_head, graphs_head = (
         run_losses_and_params(run, GRAPH_FIRST, GRAPH_FIRST)
-        for run in (trained["run_dir"], eager_run, graph_run))
-    eager2, graphs = (run_losses_and_params(run, GRAPH_STEPS, GRAPH_STEPS)
-                      for run in (eager_run, graph_run))
-    spread = run_spread(first_run, eager2_head, GRAPH_FIRST)
-    limits = [max(2 * x, 1e-5) for x in spread]
-    err = run_spread(eager2, graphs)
-    require(err[0] <= limits[0] and err[1] <= limits[1],
-            f"(d) graph run against eager2 over {GRAPH_STEPS} steps: loss "
-            f"{err[0]}, parameters at {GRAPH_STEPS} {err[1]}; eager against "
-            f"eager {spread}")
-    err_head = run_spread(first_run, graphs_head, GRAPH_FIRST)
-    require(err_head[0] <= limits[0] and err_head[1] <= limits[1],
+        for run in (trained["run_dir"], graph_run))
+    err_head = run_spread(eager_head, graphs_head, GRAPH_FIRST)
+    require(max(err_head) <= GRAPH_LIMIT,
             f"(d) graph run against phase 6 over {GRAPH_FIRST} steps: loss "
-            f"{err_head[0]}, parameters at {GRAPH_FIRST} {err_head[1]}; eager "
-            f"against eager {spread}")
+            f"{err_head[0]}, parameters at {GRAPH_FIRST} {err_head[1]} "
+            f"(limit {GRAPH_LIMIT})")
     losses = graphs[0]
     first, last = (float(np.mean(losses[:5])),
                    float(np.mean(losses[GRAPH_STEPS - 5:])))
@@ -1845,9 +1879,8 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
     n = step_fn.prewarm(state, [batch_to_device(h, dev) for h in host])
     capture_s = time.perf_counter() - t0
     replay_t = time_train_steps(state, step_fn, iter(host), 1, 4)
-    out = dict(eager_runs_s=eager_s, graph_runs_s=graph_s,
-               replayed_steps=replayed,
-               eager_spread=spread, graph_err=err, graph_err_head=err_head,
+    out = dict(graph_runs_s=graph_s, replayed_steps=replayed,
+               graph_err=err, graph_err_head=err_head,
                loss_first5=first,
                loss_last5=last, bucket_shapes=len(shapes),
                replay_idle=prof["device_idle_share"],
@@ -1857,12 +1890,11 @@ def train_graphs(dev, trained: dict, tmp: str) -> dict:
     log(f"[graphs] (d) train(prewarm=True) {GRAPH_FIRST} + resume to "
         f"{GRAPH_STEPS} on {len(shapes)} bucket shapes ({replayed} of "
         f"{GRAPH_STEPS} steps replayed, "
-        f"each step of a bucket shape): {graph_s:.1f} s against "
-        f"{eager_s:.1f} s eager; loss {first:.4f} -> {last:.4f}; against "
-        f"eager2 over {GRAPH_STEPS} steps: loss {err[0]:.3e}, parameters "
-        f"{err[1]:.3e}; against phase 6 over {GRAPH_FIRST}: loss "
-        f"{err_head[0]:.3e}, parameters {err_head[1]:.3e} (eager against "
-        f"eager {spread[0]:.3e}, {spread[1]:.3e}); steps 11-15 idle "
+        f"each step of a bucket shape): {graph_s:.1f} s; loss {first:.4f} "
+        f"-> {last:.4f}; against phase 6's eager run over {GRAPH_STEPS} "
+        f"steps: loss {err[0]:.3e}, parameters {err[1]:.3e}; at step "
+        f"{GRAPH_FIRST}: loss {err_head[0]:.3e}, parameters "
+        f"{err_head[1]:.3e}; steps 11-15 idle "
         f"{prof['device_idle_share']:.4f} (eager "
         f"{out['eager_idle']:.4f}); the same 4 batches: eager "
         f"{eager_t['sec_per_step']:.4f} s a step, "
@@ -1984,6 +2016,10 @@ def start_two_ranks(dirs, out: str, dev):
         for r in range(2)]
 
 
+#: phase 9 (a)'s runs (10 steps each until phase 14 came; cut for time)
+PARALLEL_STEPS = 5
+
+
 def parallel_phase(dev, main: dict, trained: dict, tmp: str) -> dict:
     """Phase 9 (a)-(d) of the module docstring.  Returns its numbers."""
     import dataclasses
@@ -2025,7 +2061,8 @@ def parallel_phase(dev, main: dict, trained: dict, tmp: str) -> dict:
         require(plan.shard is not None and plan.data_size == 1,
                 f"(a) plan {plan}")
 
-        # (a) 10 steps plain, data-parallel, data-parallel replayed
+        # (a) PARALLEL_STEPS steps plain, data-parallel, data-parallel
+        # replayed
         runs = {k: os.path.join(tmp, f"run_{k}")
                 for k in ("plain", "dp", "dp_graphs")}
         steps_made = []
@@ -2036,31 +2073,32 @@ def parallel_phase(dev, main: dict, trained: dict, tmp: str) -> dict:
             return prewarm(self, state, batches)
 
         t0 = time.perf_counter()
-        train(runs["plain"], dirs, cfg, num_steps=10, device=dev)
-        train(runs["dp"], dirs, cfg, num_steps=10, device=dev, plan=plan)
+        n = PARALLEL_STEPS
+        train(runs["plain"], dirs, cfg, num_steps=n, device=dev)
+        train(runs["dp"], dirs, cfg, num_steps=n, device=dev, plan=plan)
         TrainStep.prewarm = keep
         try:
-            train(runs["dp_graphs"], dirs, cfg, num_steps=10, device=dev,
+            train(runs["dp_graphs"], dirs, cfg, num_steps=n, device=dev,
                   plan=plan, prewarm=True)
         finally:
             TrainStep.prewarm = prewarm
         wall_a = time.perf_counter() - t0
         replayed = sum(g.replays for s in steps_made
                        for g in s._graphs.values())
-        require(len(steps_made) == 1 and replayed == 10,
-                f"(a) {replayed} of 10 steps replayed a graph")
+        require(len(steps_made) == 1 and replayed == n,
+                f"(a) {replayed} of {n} steps replayed a graph")
         got = {k: run_losses_and_params(v) for k, v in runs.items()}
-        dp_err = run_spread(got["plain"], got["dp"], 10)
-        graph_err = run_spread(got["dp"], got["dp_graphs"], 10)
+        dp_err = run_spread(got["plain"], got["dp"], n)
+        graph_err = run_spread(got["dp"], got["dp_graphs"], n)
         require(max(dp_err + graph_err) <= 1e-6,
                 f"(a) data-parallel vs plain {dp_err}, replayed vs eager "
                 f"{graph_err} (loss, parameters; limit 1e-6)")
         out.update(dp_vs_plain=dp_err, replay_vs_eager=graph_err,
                    wall_a_s=wall_a, runtime_info=info)
-        log(f"[parallel] (a) NCCL world size 1, 10 steps at batch 16 "
+        log(f"[parallel] (a) NCCL world size 1, {n} steps at batch 16 "
             f"(corpus-max shape): data-parallel against plain: loss "
             f"{dp_err[0]:.3e}, parameters {dp_err[1]:.3e} (relative); "
-            f"prewarmed (10 of 10 steps replayed) against eager: loss "
+            f"prewarmed ({n} of {n} steps replayed) against eager: loss "
             f"{graph_err[0]:.3e}, parameters {graph_err[1]:.3e}; "
             f"{wall_a:.1f} s for the three runs")
 
@@ -2931,11 +2969,11 @@ def bf16_training(dev, trained: dict, graphs: dict, tmp: str) -> dict:
 
 def bf16_preset_cli(config, tmp: str) -> dict:
     """(d) ``python -m tacotron_tpu_torch.train --preset tpu --num_steps 3``
-    as a user runs it, on a corpus written by phase 6's writer (it stores
-    the waveforms) with 64 utterances a speaker: the feeder holds out a
-    batch a speaker for its test set, 32 at the preset's batch, which
-    would leave phase 6's 32 none to train on.  Exit 0, and the run's
-    ``config.json`` reads bf16 and batch 32."""
+    as a user runs it, on a corpus written here by phase 6's writer (it
+    stores the waveforms) with 64 utterances a speaker: the feeder holds
+    out a batch a speaker for its test set, 32 at the preset's batch, which
+    would leave phase 6's 32 none to train on.  Returns its ``python -m``
+    arguments (``args``; it runs beside phase 14) and ``log_dir``."""
     import os
 
     from tacotron_tpu_torch.data import synthetic
@@ -2948,16 +2986,19 @@ def bf16_preset_cli(config, tmp: str) -> dict:
     finally:
         synthetic.PER_SPEAKER = per_speaker
     log_dir = os.path.join(tmp, "preset_logs")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tacotron_tpu_torch.train", "--preset", "tpu",
-         "--num_steps", "3", "--data_paths", ",".join(dirs), "--log_dir",
-         log_dir],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-        text=True, timeout=400)
-    wall = time.perf_counter() - t0
-    require(proc.returncode == 0, f"(d) --preset tpu exited "
-                                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return {"args": ["tacotron_tpu_torch.train", "--preset", "tpu",
+                     "--num_steps", "3", "--data_paths", ",".join(dirs),
+                     "--log_dir", log_dir], "log_dir": log_dir}
+
+
+def check_preset_cli(cli: dict, done: tuple) -> None:
+    """Phase 11 (d), run beside phase 14: the run's ``config.json`` reads
+    bf16 and batch 32, and its three losses are finite."""
+    import os
+
+    from tacotron_tpu_torch.utils import read_metrics
+
+    wall, log_dir = done[0], cli["log_dir"]
     [run] = os.listdir(log_dir)
     with open(os.path.join(log_dir, run, "config.json")) as fh:
         saved = json.load(fh)
@@ -2966,21 +3007,20 @@ def bf16_preset_cli(config, tmp: str) -> dict:
             and saved["train"]["on_device_features"] is True,
             f"(d) the run's config: model {saved['model']}, train "
             f"{saved['train']}")
-    from tacotron_tpu_torch.utils import read_metrics
     losses = [r["loss"] for r in read_metrics(
         os.path.join(log_dir, run, "metrics.jsonl"), "train")]
     require(len(losses) == 3 and np.isfinite(losses).all(),
             f"(d) losses {losses}")
     log(f"[bf16] (d) python -m tacotron_tpu_torch.train --preset tpu "
-        f"--num_steps 3: exit 0 in {wall:.1f} s, config.json bf16 at batch "
-        f"32 with on-device features, losses "
+        f"--num_steps 3, beside phase 14: exit 0 within {wall:.1f} s, "
+        f"config.json bf16 at batch 32 with on-device features, losses "
         f"{[round(x, 4) for x in losses]}")
-    return {"wall_s": wall, "losses": losses}
+    cli.update(wall_s=wall, losses=losses)
 
 
 def bf16_phase(dev, main: dict, trained: dict, graphs: dict,
                tmp: str) -> dict:
-    """Phase 11 (a)-(d) of the module docstring."""
+    """Phase 11 (a)-(c) of the module docstring, and (d)'s corpus."""
     t_phase = time.perf_counter()
     out = {"forward": bf16_forward(dev, main, trained["corpus"]),
            "serving": bf16_serving(dev, main, graphs)}
@@ -3094,23 +3134,32 @@ def checkpoint_saves(dev, trained: dict, tmp: str) -> dict:
     return out
 
 
-def study_cli(work: str, art: str, *args) -> tuple:
-    """``python -m tacotron_tpu_torch.studies.convergence_study`` as a user
-    runs it, on the card: (report, wall seconds, stdout)."""
+def study_args(work: str, art: str, *args) -> list:
+    """``python -m`` arguments of the convergence study on ``work``, its
+    report into ``art``."""
+    return ["tacotron_tpu_torch.studies.convergence_study", "--work", work,
+            "--artifacts", art, "--utterances", "48", *args]
+
+
+def study_report(art: str) -> dict:
+    """The convergence study's report in ``art``, with the keys, device
+    and bf16 preset config it must carry, and its speaker eval's keys."""
     import os
 
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tacotron_tpu_torch.studies.convergence_study",
-         "--work", work, "--artifacts", art, "--utterances", "48", *args],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-        text=True, timeout=400)
-    wall = time.perf_counter() - t0
-    require(proc.returncode == 0, f"(b) the study {args} exited "
-                                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+    from tacotron_tpu_torch.utils import card_line
+
     with open(os.path.join(art, "convergence_report.json"),
               encoding="utf-8") as fh:
-        return json.load(fh), wall, proc.stdout
+        report = json.load(fh)
+    require(set(report) == STUDY_REPORT_KEYS,
+            f"(b) report keys {sorted(report)}")
+    require(report["device"] == card_line(),
+            f"(b) report device {report['device']!r}")
+    require(report["config"]["compute_dtype"] == "bfloat16"
+            and report["config"]["batch_size"] == 32,
+            f"(b) report config {report['config']}")
+    check_report(report["speaker_eval"], [0, 1], 8, "(b)")
+    return report
 
 
 def study_launches(dev, run: str, heldout, rng) -> dict:
@@ -3181,64 +3230,41 @@ def study_launches(dev, run: str, heldout, rng) -> dict:
 
 
 def convergence_phase(dev, trained: dict, tmp: str) -> dict:
-    """Phase 12 (a)-(c) of the module docstring."""
+    """Phase 12 (a), (b)'s first study call and ``mulaw_quality``, and (c);
+    ``out["resume_args"]`` is (b)'s second call, which runs beside phase
+    14 (:func:`check_study_resume` checks it)."""
     import os
 
     from tacotron_tpu_torch.studies import make_synthetic_corpus as corpus
     from tacotron_tpu_torch.studies.convergence_study import \
         token_tone_accuracy
     from tacotron_tpu_torch.text import text_to_sequence
-    from tacotron_tpu_torch.train.checkpoint import checkpoint_steps
-    from tacotron_tpu_torch.utils import card_line, read_metrics
 
     t_phase = time.perf_counter()
-    rng = np.random.default_rng(12)
     out = {"saves": checkpoint_saves(dev, trained, tmp)}
 
-    # (b) the study CLI twice on one --work: the second call resumes
+    # (b) the study CLI on one --work, alone on the card: its wall budget
+    # and steps/s are read
     work = os.path.join(tmp, "study")
-    first, wall1, _ = study_cli(work, os.path.join(tmp, "study_art1"),
-                                "--steps", "100000", "--wall_budget_s", "15")
+    art1, art2 = (os.path.join(tmp, f"study_art{i}") for i in (1, 2))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", *study_args(work, art1, "--steps", "100000",
+                                            "--wall_budget_s", "5")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=400)
+    wall1 = time.perf_counter() - t0
+    require(proc.returncode == 0, f"(b) the study's first call exited "
+                                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+    first = study_report(art1)
     n1 = first["steps"]
     require(n1 > 0, f"(b) the first call trained {n1} steps")
-    second, wall2, stdout = study_cli(work, os.path.join(tmp, "study_art2"),
-                                      "--steps", str(n1 + 10))
     run = os.path.join(work, "run")
-    with open(os.path.join(run, "train.log"), encoding="utf-8") as fh:
-        text = fh.read()
-    logged = [r["step"] for r in read_metrics(
-        os.path.join(run, "metrics.jsonl"), "train")]
-    require(second["steps"] == n1 + 10
-            and f"resumed from {run} at step {n1}" in text
-            and checkpoint_steps(run)[-2:] == [n1, n1 + 10]
-            and logged == sorted(set(logged)) and logged[-1] <= n1 + 10,
-            f"(b) the second call did not resume from step {n1}: report "
-            f"steps {second['steps']}, checkpoints {checkpoint_steps(run)}, "
-            f"logged steps {logged[-5:]}")
-    for report in (first, second):
-        require(set(report) == STUDY_REPORT_KEYS,
-                f"(b) report keys {sorted(report)}")
-        require(report["device"] == card_line(),
-                f"(b) report device {report['device']!r}")
-        require(report["config"]["compute_dtype"] == "bfloat16"
-                and report["config"]["batch_size"] == 32,
-                f"(b) report config {report['config']}")
-        check_report(report["speaker_eval"], [0, 1], 8, "(b)")
-    require(os.path.exists(os.path.join(tmp, "study_art2",
-                                         "loss_curve.json")),
-            "(b) no loss_curve.json")
-    with open(os.path.join(work, "corpus", "heldout.json"),
-              encoding="utf-8") as fh:
-        heldout = json.load(fh)
-    out["study"] = dict(first_steps=n1, first_s=wall1, second_s=wall2,
-                        train_s=first["train_seconds"],
-                        steps_per_s=n1 / max(first["train_seconds"], 1e-9),
-                        eval=study_launches(dev, run, heldout, rng))
+    heldout_json = os.path.join(work, "corpus", "heldout.json")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "tacotron_tpu_torch.studies.mulaw_quality",
-         "--load_path", run, "--texts_json",
-         os.path.join(work, "corpus", "heldout.json")],
+         "--load_path", run, "--texts_json", heldout_json],
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
         text=True, timeout=300)
     require(proc.returncode == 0, f"(b) mulaw_quality exited "
@@ -3247,22 +3273,13 @@ def convergence_phase(dev, trained: dict, tmp: str) -> dict:
     require(np.isfinite([mulaw["lsd_db_mean"], mulaw["snr_db_mean"]]).all(),
             f"(b) mulaw report {mulaw}")
     out["mulaw"] = dict(mulaw, wall_s=time.perf_counter() - t0)
-    ev = out["study"]["eval"]
-    log(f"[convergence] (b) the study CLI on a 48-a-speaker melody corpus, "
-        f"batch 32, bf16: call 1 (--wall_budget_s 15) {n1} steps in "
-        f"{first['train_seconds']:.1f} s of training "
-        f"({out['study']['steps_per_s']:.2f} steps/s), exit 0 in "
-        f"{wall1:.1f} s; call 2 resumed at step {n1} to {n1 + 10}, exit 0 "
-        f"in {wall2:.1f} s; held-out evaluation in process "
-        f"{ev['wall_s']:.2f} s: "
-        + "; ".join(f"{c['n']} texts, {c['steps']} steps, fast "
-                    f"{c['fast']}, fused {c['fused']}: launches "
-                    f"{c['launches']}, {'K1 rel' if c['fused'] else 'K2 abs'}"
-                    f" error {', '.join(f'B={b} {e:.3e}' for b, e in c['kernel_err'].items())}"
-                    for c in ev["calls"])
-        + f"; tone accuracy at step {n1 + 10} {ev['tone_accuracy']}; "
-        f"mulaw_quality LSD {mulaw['lsd_db_mean']} dB, SNR "
-        f"{mulaw['snr_db_mean']} dB")
+    with open(heldout_json, encoding="utf-8") as fh:
+        heldout = json.load(fh)
+    out["study"] = dict(work=work, art2=art2, heldout=heldout,
+                        first_steps=n1, first_s=wall1,
+                        train_s=first["train_seconds"],
+                        steps_per_s=n1 / max(first["train_seconds"], 1e-9))
+    out["resume_args"] = study_args(work, art2, "--steps", str(n1 + 10))
 
     # (c) the instrument reads the ground truth as exactly right
     sr = trained["config"].audio.sample_rate
@@ -3282,6 +3299,53 @@ def convergence_phase(dev, trained: dict, tmp: str) -> dict:
         f"speakers, melody and melody_var")
     out["wall_s"] = time.perf_counter() - t_phase
     return out
+
+
+def check_study_resume(dev, out: dict, done: tuple) -> None:
+    """Phase 12 (b)'s second study call, which ran beside phase 14: it
+    resumed from the first call's checkpoint; then the study's held-out
+    evaluation in this process on its run."""
+    import os
+
+    from tacotron_tpu_torch.train.checkpoint import checkpoint_steps
+    from tacotron_tpu_torch.utils import read_metrics
+
+    t0 = time.perf_counter()
+    st = out["study"]
+    n1, run = st["first_steps"], os.path.join(st["work"], "run")
+    second = study_report(st["art2"])
+    with open(os.path.join(run, "train.log"), encoding="utf-8") as fh:
+        text = fh.read()
+    logged = [r["step"] for r in read_metrics(
+        os.path.join(run, "metrics.jsonl"), "train")]
+    require(second["steps"] == n1 + 10
+            and f"resumed from {run} at step {n1}" in text
+            and checkpoint_steps(run)[-2:] == [n1, n1 + 10]
+            and logged == sorted(set(logged)) and logged[-1] <= n1 + 10,
+            f"(b) the second call did not resume from step {n1}: report "
+            f"steps {second['steps']}, checkpoints {checkpoint_steps(run)}, "
+            f"logged steps {logged[-5:]}")
+    require(os.path.exists(os.path.join(st["art2"], "loss_curve.json")),
+            "(b) no loss_curve.json")
+    st["second_s"] = done[0]
+    st["eval"] = ev = study_launches(dev, run, st["heldout"],
+                                     np.random.default_rng(12))
+    mulaw = out["mulaw"]
+    log(f"[convergence] (b) the study CLI on a 48-a-speaker melody corpus, "
+        f"batch 32, bf16: call 1 (--wall_budget_s 5) {n1} steps in "
+        f"{st['train_s']:.1f} s of training ({st['steps_per_s']:.2f} "
+        f"steps/s), exit 0 in {st['first_s']:.1f} s; mulaw_quality on its "
+        f"run: LSD {mulaw['lsd_db_mean']} dB, SNR {mulaw['snr_db_mean']} "
+        f"dB; call 2, beside phase 14, resumed at step {n1} to {n1 + 10}, "
+        f"exit 0 within {done[0]:.1f} s; held-out evaluation in process "
+        f"{ev['wall_s']:.2f} s: "
+        + "; ".join(f"{c['n']} texts, {c['steps']} steps, fast "
+                    f"{c['fast']}, fused {c['fused']}: launches "
+                    f"{c['launches']}, {'K1 rel' if c['fused'] else 'K2 abs'}"
+                    f" error {', '.join(f'B={b} {e:.3e}' for b, e in c['kernel_err'].items())}"
+                    for c in ev["calls"])
+        + f"; tone accuracy at step {n1 + 10} {ev['tone_accuracy']}")
+    out["wall_s"] += time.perf_counter() - t0
 
 
 # ----------------------------------------------------------------- studies
@@ -3404,23 +3468,26 @@ def k4_bf16(dev, synth, rng) -> dict:
     return out
 
 
-def load_launches(synth, calls: list) -> tuple:
+def load_launches(synth, calls: list, max_steps=None,
+                  fast: bool = True) -> tuple:
     """(K1/K2/K3 launches, {(kernel, padded batch, frames)}) that the
-    recorded ``synthesize`` calls (their texts) must make: each chunk runs
-    the fast vocoder's iterations through K1 where ``fused_supported``
-    takes its frames, else through matmul_half and K2 (one more for the
-    start)."""
+    recorded ``synthesize`` calls (their texts) must make at ``max_steps``
+    (None: the adaptive budget): each chunk runs the vocoder's iterations
+    (the fast vocoder's, or the config's) through K1 where
+    ``fused_supported`` takes its frames, else through matmul_half and K2
+    (one more for the start)."""
     from tacotron_tpu_torch.ops.kernels.gl_fused import fused_supported
     from tacotron_tpu_torch.text import text_to_sequence
 
     audio, r = synth.config.audio, synth.config.model.reduction_factor
     want, shapes = {"K1": 0, "K2": 0, "K3": 0}, set()
-    iters = synth.FAST_GRIFFIN_LIM_ITERS
+    iters = (synth.FAST_GRIFFIN_LIM_ITERS if fast
+             else audio.griffin_lim_iters)
     for texts in calls:
         seqs = [text_to_sequence(t, synth.cleaner_names(),
                                  symbol_set=synth.config.data.symbol_set)
                 for t in texts]
-        steps = synth._budget([len(q) for q in seqs], None, 32)[1]
+        steps = synth._budget([len(q) for q in seqs], max_steps, 32)[1]
         chunks = synth._chunks(len(texts))
         fused = fused_supported(audio, steps * r)
         if fused:
@@ -3430,67 +3497,6 @@ def load_launches(synth, calls: list) -> tuple:
         shapes |= {("K1" if fused else "K2", nb, steps * r)
                    for _, _, nb in chunks}
     return want, shapes
-
-
-def serving_load_study(dev, synth, rng) -> dict:
-    """(b) ``studies/serving_load.py::run_load_test`` on phase 4's
-    synthesizer, prewarmed, at levels 1 and 4 with 4 requests, ``max_batch``
-    4 and 1: the rows' keys, every call replayed, and the K1/K2 launches
-    of the replays (a trace of the run; the counters see none) held to the
-    count the calls' texts give (:func:`load_launches`), the kernel that
-    ran against its plain version at each chunk's shape."""
-    from tacotron_tpu_torch.studies import serving_load
-
-    # the programs first, outside the trace (run_load_test's own prewarm
-    # then finds them all captured)
-    t0 = time.perf_counter()
-    synth.prewarm(token_buckets=(32, 64), batch_sizes=(1, 2, 4),
-                  fast_vocoder=True)
-    prewarm_s = time.perf_counter() - t0
-    calls = []
-    inner = synth.synthesize
-
-    def recorded(**kw):
-        calls.append(list(kw["texts"]))
-        return inner(**kw)
-
-    synth.synthesize = recorded
-    zero_counts()
-    try:
-        report, summary = traced(lambda: serving_load.run_load_test(
-            synth, levels=(1, 4), requests_per_level=4, max_batches=(4, 1),
-            prewarm=True))
-    finally:
-        del synth.synthesize
-    counted, in_trace = read_counts(), trace_counts(summary)
-    want, shapes = load_launches(synth, calls)
-    got = {k: counted[k] + in_trace[k] for k in want}
-    require(got == want, f"(b) serving_load launches {got} (counters "
-                         f"{counted}, trace {in_trace}), derived {want} "
-                         f"from {len(calls)} calls")
-    require(not any(counted.values()),
-            f"(b) a prewarmed call ran eagerly: counters {counted}")
-    rows = report["levels"]
-    require([(r["max_batch"], r["concurrency"]) for r in rows]
-            == [(4, 1), (4, 4), (1, 1), (1, 4)], f"(b) rows {rows}")
-    for row in rows:
-        require(set(row) == LOAD_ROW_KEYS, f"(b) row keys {sorted(row)}")
-        require(row["k1_launches"] == row["k2_launches"] == 0
-                and 1 <= row["replays"] <= row["requests"],
-                f"(b) row {row}: every call replays")
-        if row["concurrency"] == 1 or row["max_batch"] == 1:
-            require(row["batched_calls"] == 0
-                    and row["replays"] == row["requests"],
-                    f"(b) coalesced without concurrency: {row}")
-    require(sum(r["replays"] for r in rows) == len(calls),
-            f"(b) {sum(r['replays'] for r in rows)} replays for "
-            f"{len(calls)} calls")
-    errs = {f"{k} B={nb} T={frames}":
-            (check_k1_at if k == "K1" else check_k2_at)(
-                dev, rng, synth.config.audio, nb, frames)
-            for k, nb, frames in sorted(shapes)}
-    return dict(rows=rows, launches=got, calls=len(calls),
-                prewarm_s=prewarm_s, kernel_err=errs)
 
 
 #: the keys of a serving_load row: the script's, and the port's launch
@@ -3532,36 +3538,40 @@ def sweep_study(dev, rng) -> dict:
     return point
 
 
-def study_subprocesses(runs: dict) -> dict:
-    """``python -m tacotron_tpu_torch.studies.<name> <args>`` for each
-    ``name: args`` of ``runs``, as a user runs them, on the card, all at
-    once (they share the card as two users' jobs would): each exits 0.
-    Returns {name: (wall seconds, the last line it printed)}."""
+@contextlib.contextmanager
+def beside(runs: dict):
+    """``python -m <args>`` for each ``name: args`` of ``runs``, as a user
+    runs it, on the card, all started on entry and run beside the body
+    (they share the card as several users' jobs would); on exit each is
+    waited for and must exit 0.  Yields the dict it then fills with
+    {name: (seconds from the start until it was seen to have exited,
+    stdout)}: a command that ended during the body is seen at its end, so
+    its seconds bound its run time from above."""
     import os
 
     t0 = time.perf_counter()
     procs, out = {}, {}
-    # each writes to files, so that neither stalls on a full pipe while
-    # the other is waited for
+    # each writes to files, so that none stalls on a full pipe while
+    # another is waited for
     with tempfile.TemporaryDirectory() as logs:
         try:
             for name, args in runs.items():
                 files = [open(os.path.join(logs, f"{name}.{k}"), "w+")
                          for k in ("out", "err")]
                 procs[name] = (subprocess.Popen(
-                    [sys.executable, "-m",
-                     f"tacotron_tpu_torch.studies.{name}", *args],
+                    [sys.executable, "-m", *args],
                     cwd=os.path.dirname(os.path.abspath(__file__)),
                     stdout=files[0], stderr=files[1], text=True), files)
+            yield out
             for name, (proc, files) in procs.items():
                 proc.wait(timeout=400)
                 wall = time.perf_counter() - t0
                 for f in files:
                     f.seek(0)
                 stdout, stderr = (f.read() for f in files)
-                require(proc.returncode == 0, f"(d) {name} exited "
+                require(proc.returncode == 0, f"{name} exited "
                         f"{proc.returncode}: {stderr[-3000:]}")
-                out[name] = (wall, stdout.strip().splitlines()[-1])
+                out[name] = (wall, stdout)
         finally:
             for proc, files in procs.values():
                 if proc.poll() is None:
@@ -3569,30 +3579,14 @@ def study_subprocesses(runs: dict) -> dict:
                     proc.wait()
                 for f in files:
                     f.close()
-    return out
 
 
 def studies_phase(dev, main: dict, tmp: str) -> dict:
-    """Phase 13 (a)-(d) of the module docstring."""
-    import os
-
-    from tacotron_tpu_torch.utils import card_line
-
+    """Phase 13 (a) and (c) of the module docstring ((b) is phase 14's
+    load section; (d) runs beside phase 14)."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(13)
     out = {"k4": k4_bf16(dev, main["synth"], rng)}
-    t0 = time.perf_counter()
-    out["load"] = serving_load_study(dev, main["synth"], rng)
-    out["load"]["wall_s"] = time.perf_counter() - t0
-    load = out["load"]
-    log("[studies] (b) serving_load, prewarmed ("
-        f"{load['prewarm_s']:.1f} s), {load['calls']} calls, launches "
-        f"{load['launches']} (as derived): " + "; ".join(
-            f"max_batch {r['max_batch']} N={r['concurrency']}: p50 "
-            f"{r['p50_ms']} ms, p95 {r['p95_ms']} ms, "
-            f"{r['throughput_rps']} req/s, batched_calls "
-            f"{r['batched_calls']}, replays {r['replays']}"
-            for r in load["rows"]))
     out["sweep"] = sweep_study(dev, rng)
     p = out["sweep"]
     log(f"[studies] (c) synth_sweep pallas point at batch 16: replay "
@@ -3601,30 +3595,236 @@ def studies_phase(dev, main: dict, tmp: str) -> dict:
         f"capture {p['capture_s']} s, spectral convergence "
         f"{p['spectral_convergence']}, launches K3 {p['k3_launches']} K2 "
         f"{p['k2_launches']} (as derived)")
-    # (d) the two training studies as a user runs them, a few steps each
-    # (10 a bf16_study arm; 640 samples give batch_study's batch-64 arms
-    # the 10 steps of one logged record)
-    work = os.path.join(tmp, "bf16_study")
-    done = study_subprocesses({
-        "bf16_study": ["--steps", "10", "--work_dir", work],
-        "batch_study": ["--samples", "640", "--work",
-                        os.path.join(tmp, "batch_study")]})
-    with open(os.path.join(work, "BF16_STUDY.md"), encoding="utf-8") as fh:
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def study_runs(tmp: str) -> dict:
+    """Phase 13 (d)'s two training studies, a few steps each (10 a
+    bf16_study arm; 640 samples give batch_study's batch-64 arms the 10
+    steps of one logged record): {name: ``python -m`` arguments}."""
+    import os
+
+    return {"bf16_study": ["tacotron_tpu_torch.studies.bf16_study",
+                           "--steps", "10", "--work_dir",
+                           os.path.join(tmp, "bf16_study")],
+            "batch_study": ["tacotron_tpu_torch.studies.batch_study",
+                            "--samples", "640", "--work",
+                            os.path.join(tmp, "batch_study")]}
+
+
+def check_studies(done: dict, tmp: str) -> dict:
+    """Phase 13 (d): the reports' device line and keys."""
+    import os
+
+    from tacotron_tpu_torch.utils import card_line
+
+    with open(os.path.join(tmp, "bf16_study", "BF16_STUDY.md"),
+              encoding="utf-8") as fh:
         text = fh.read()
     require(f"device: {card_line()}." in text and "**Recommendation**"
             in text, f"(d) bf16_study report: {text[:400]!r}")
-    summary = json.loads(done["batch_study"][1])
+    summary = json.loads(done["batch_study"][1].strip().splitlines()[-1])
     require(set(summary) == {"b16", "b64", "b64_rescaled", "winner",
                              "rel_diff"}
             and np.isfinite([summary["b16"], summary["b64"]]).all(),
             f"(d) batch_study summary {summary}")
-    out["cli"] = dict(bf16_s=done["bf16_study"][0],
-                      batch_s=done["batch_study"][0], batch_summary=summary)
+    cli = dict(bf16_s=done["bf16_study"][0], batch_s=done["batch_study"][0],
+               batch_summary=summary)
     log(f"[studies] (d) bf16_study --steps 10 and batch_study --samples "
-        f"640 at once: exit 0 after {out['cli']['bf16_s']:.1f} s and "
-        f"{out['cli']['batch_s']:.1f} s, {summary}")
-    out["wall_s"] = time.perf_counter() - t_phase
-    return out
+        f"640 at once, beside phase 14: exit 0 within {cli['bf16_s']:.1f} "
+        f"s and {cli['batch_s']:.1f} s, {summary}")
+    return cli
+
+
+# ------------------------------------------------------------------ bench
+
+def bench_missing_keys(record: dict) -> list:
+    """The keys of the committed root record (``BENCH_DETAIL.json``),
+    through the port's ``RENAMED``, that ``record`` lacks."""
+    import os
+
+    from tacotron_tpu_torch.bench import RENAMED
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "BENCH_DETAIL.json"), encoding="utf-8") as fh:
+        root = json.load(fh)
+    missing = [k for k in root if k not in record]
+    detail = record["detail"]
+    for key, value in root["detail"].items():
+        names = ([f"roofline.{k}" for k in value] if key == "roofline"
+                 else [key])
+        for name in names:
+            name = RENAMED.get(name, name)
+            head, _, sub = name.partition(".")
+            if head not in detail or (sub and sub not in detail[head]):
+                missing.append(name)
+    return missing
+
+
+#: phase 14's counts: the timed calls of each eager row (the first call,
+#: one warm-up, two repetitions)
+BENCH_COUNTS = dict(warmup=1, reps=2, chain=3, fresh=2, load_levels=(1, 4),
+                    load_requests=4)
+BENCH_EAGER_CALLS = 1 + 1 + 2
+BENCH_EAGER_ROWS = ("raw", "fast_gla", "serving", "serving_latency_1utt")
+
+
+def bench_phase(dev) -> dict:
+    """Phase 14 of the module docstring."""
+    import math
+
+    from tacotron_tpu_torch import bench
+    from tacotron_tpu_torch.config import Config
+    from tacotron_tpu_torch.ops.kernels.gl_fused import fused_supported
+    from tacotron_tpu_torch.studies import serving_load, synth_sweep
+    from tacotron_tpu_torch.synth import Synthesizer
+    from tacotron_tpu_torch.synth.synthesizer import split_text
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(14)
+    cfg = Config()
+    synth = Synthesizer(device=dev).init_random(cfg)
+    run_load_test, calls, load = serving_load.run_load_test, [], {}
+
+    def traced_load(s, **kw):
+        """The load section with its calls' texts recorded and the run
+        traced: the replays' launches, which the counters do not see."""
+        inner = s.synthesize
+
+        def recorded(**k):
+            calls.append(list(k["texts"]))
+            return inner(**k)
+
+        s.synthesize = recorded
+        before = read_counts()
+        try:
+            report, summary = traced(lambda: run_load_test(s, **kw))
+        finally:
+            del s.synthesize
+        load["counted"] = {k: v - before[k] for k, v in read_counts().items()}
+        load["trace"] = trace_counts(summary)
+        return report
+
+    # a capture's warm-up and capture run through the wrappers: their
+    # launches are counted apart
+    harness_capture, in_captures = bench._Harness.capture, dict.fromkeys(
+        ("K1", "K2", "K3"), 0)
+
+    def capture(self, fn):
+        before = read_counts()
+        out = harness_capture(self, fn)
+        for k, v in read_counts().items():
+            in_captures[k] += v - before[k]
+        return out
+
+    serving_load.run_load_test = traced_load
+    bench._Harness.capture = capture
+    zero_counts()
+    try:
+        record = bench.run(synth, cfg, batch=32, max_steps=50,
+                           **BENCH_COUNTS)
+    finally:
+        serving_load.run_load_test = run_load_test
+        bench._Harness.capture = harness_capture
+    counted = {k: v - in_captures[k] for k, v in read_counts().items()}
+    wall = time.perf_counter() - t_phase
+    detail = record["detail"]
+
+    missing = bench_missing_keys(record)
+    require(not missing, f"the record lacks {missing}")
+    bad = [p for p, v in bench.numbers(record) if not math.isfinite(v)]
+    require(not bad, f"numbers not finite: {bad}")
+    require(detail["training_scan_unroll"] is None
+            and detail["device"] == card_line(),
+            f"scan unroll {detail['training_scan_unroll']}, device "
+            f"{detail['device']}")
+    headline = bench.headline_line(record, bench.DEFAULT_OUT)
+    require(len(headline.encode()) <= 200, f"headline {headline}")
+
+    # each section's first call, as its texts, steps and vocoder give
+    audio, r = cfg.audio, cfg.model.reduction_factor
+    require(fused_supported(audio, 50 * r), "50 steps off the fused engine")
+    texts = [synth_sweep.TEXTS[i % len(synth_sweep.TEXTS)]
+             for i in range(32)]
+    chunks = split_text(bench.LONG_TEXT, 120, synth.cleaner_names())
+
+    # the (kernel, padded batch, frames) of every call: the raw and fast
+    # programs vocode the whole batch at once
+    shapes = {("K1", 32, 50 * r)}
+
+    def kernels(calls_, max_steps, fast):
+        want, at = load_launches(synth, calls_, max_steps, fast)
+        shapes.update(at)
+        return {"K1": want["K1"], "K2": want["K2"]}
+
+    derived = {
+        "raw": {"K1": K1_PER_ITERATION * audio.griffin_lim_iters, "K2": 0},
+        "fast_gla": {"K1": K1_PER_ITERATION * synth.FAST_GRIFFIN_LIM_ITERS,
+                     "K2": 0},
+        "serving": kernels([texts], 50, False),
+        "serving_fast": kernels([texts], 50, True),
+        "serving_mulaw8": kernels([texts], 50, True),
+        "serving_latency_1utt": kernels([texts[:1]], 50, True),
+        "serving_default_1utt": kernels([texts[:1]], None, True),
+        "serving_default_batch": kernels([texts], None, True),
+        "long_text": kernels([chunks], None, True)}
+    require(derived["raw"]["K1"] == 240 and derived["fast_gla"]["K1"] == 120,
+            f"derived {derived}")
+    require(detail["launches"] == derived,
+            f"first calls' launches {detail['launches']}, derived {derived}")
+    # the replays the headline times: the same waveforms as the eager
+    # first call on the same inputs (bench.run raises past the limit too)
+    replay = detail["replay_vs_eager"]
+    require(set(replay) == {"raw", "fast_gla"} and max(replay.values())
+            <= bench.REPLAY_TOLERANCE,
+            f"replayed programs against their eager calls {replay} (limit "
+            f"{bench.REPLAY_TOLERANCE} of the peak)")
+    # every other call replayed: the counters saw the eager rows' timed
+    # calls and the first calls only
+    want_total = {k: sum(v[k] * (BENCH_EAGER_CALLS if sec in
+                                 BENCH_EAGER_ROWS else 1)
+                         for sec, v in derived.items()) for k in ("K1", "K2")}
+    require({k: counted[k] for k in want_total} == want_total
+            and counted["K3"] == 0,
+            f"launches over the run {counted} (and {in_captures} in the "
+            f"captures), derived {want_total}")
+
+    # the load rows (phase 13 (b) until this phase came): every call
+    # replayed, K2 31 times a call in the trace
+    want, at = load_launches(synth, calls)
+    shapes |= at
+    got = {k: load["counted"][k] + load["trace"][k] for k in want}
+    require(got == want and want["K2"] == 31 * len(calls),
+            f"serving_load launches {got} (counters {load['counted']}, "
+            f"trace {load['trace']}), derived {want} from {len(calls)} calls")
+    require(not any(load["counted"].values()),
+            f"a prewarmed load call ran eagerly: counters {load['counted']}")
+    rows = detail["serving_concurrent_levels"]
+    require([(x["max_batch"], x["concurrency"]) for x in rows]
+            == [(4, 1), (4, 4), (1, 1), (1, 4)], f"load rows {rows}")
+    for row in rows:
+        require(set(row) == LOAD_ROW_KEYS, f"load row keys {sorted(row)}")
+        require(row["k1_launches"] == row["k2_launches"] == 0
+                and 1 <= row["replays"] <= row["requests"],
+                f"load row {row}: every call replays")
+        if row["concurrency"] == 1 or row["max_batch"] == 1:
+            require(row["batched_calls"] == 0
+                    and row["replays"] == row["requests"],
+                    f"coalesced without concurrency: {row}")
+    require(sum(x["replays"] for x in rows) == len(calls),
+            f"{sum(x['replays'] for x in rows)} replays for {len(calls)} "
+            f"calls")
+    # each kernel against its plain version at every shape of the run
+    errs = {f"{k} B={nb} T={frames}":
+            (check_k1_at if k == "K1" else check_k2_at)(
+                dev, rng, audio, nb, frames)
+            for k, nb, frames in sorted(shapes)}
+    return dict(record=record, headline=headline, counted=counted,
+                in_captures=in_captures, load_trace=load["trace"],
+                load_calls=len(calls),
+                kernel_err=errs, wall_s=wall,
+                check_s=time.perf_counter() - t_phase - wall)
 
 
 def main() -> int:
@@ -3643,8 +3843,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = _build.build()
-    log(f"[build] {time.perf_counter() - t0:.1f} s "
+    # K4's library takes ~8x the others' compile time and nothing before
+    # its checks runs it: its nvcc runs beside K1-K3's checks and phase 4
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    gru_build = pool.submit(_build.build, ["gru"])
+    built = _build.build([n for n in _build.SOURCES if n != "gru"])
+    rng = np.random.default_rng(0)
+    kernels = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng)]
+    main = main_path(dev)
+    for k, name in zip(kernels, ("K1", "K2", "K3")):
+        k["launches"] = sum(c[name] for c in main["launches"].values())
+        k["launches_by_call"] = {c: v[name]
+                                 for c, v in main["launches"].items()}
+    built.update(gru_build.result())
+    pool.shutdown()
+    log(f"[build] {time.perf_counter() - t0:.1f} s to K4's library, phase "
+        f"4 beside it "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
@@ -3659,20 +3873,13 @@ def main() -> int:
     require(all(sass["gru"][op] > 0 for op in ("UCGABAR", "STAS", "SYNCS")),
             f"libgru.so has no cluster barrier, distributed shared-memory "
             f"store or mbarrier operation: {sass['gru']}")
-
-    rng = np.random.default_rng(0)
-    kernels = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng)]
     log(f"[kernel] {check_edge_shapes(dev, rng)} ragged shapes agree with "
         f"the plain versions")
-
-    main = main_path(dev)
-    for k, name in zip(kernels, ("K1", "K2", "K3")):
-        k["launches"] = sum(c[name] for c in main["launches"].values())
-        k["launches_by_call"] = {c: v[name]
-                                 for c, v in main["launches"].items()}
     kernels.append(check_k4(dev, main["synth"], rng))
+    stamp("phases 1-5")
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_phase(dev, tmp)
+        stamp("phase 6")
         timing = trained["timing"]
         log(f"[train] batch 16, full width: median "
             f"{timing['sec_per_step']:.4f} sec/step, "
@@ -3681,15 +3888,36 @@ def main() -> int:
             f"of steps 11-15 {trained['profile']['device_idle_share']:.4f} "
             f"on {card}")
         serve = serve_phase(dev, main["synth"], trained, tmp)
+        stamp("phase 7")
         t8 = time.perf_counter()
         graphs = serving_graphs(main, tmp)
+        stamp("phase 8 (a)-(c)")
         graphs["train"] = train_graphs(dev, trained, tmp)
         graphs["wall_s"] = time.perf_counter() - t8
+        stamp("phase 8 (d)")
         par = parallel_phase(dev, main, trained, tmp)
+        stamp("phase 9")
         corpus = corpus_phase(dev, tmp)
+        stamp("phase 10")
         bf16 = bf16_phase(dev, main, trained, graphs, tmp)
+        stamp("phase 11")
         conv = convergence_phase(dev, trained, tmp)
+        stamp("phase 12")
         studies = studies_phase(dev, main, tmp)
+        stamp("phase 13 (a) and (c)")
+        # user commands whose times no metric reads run beside phase 14,
+        # whose timings nothing reads either (the bench's own run is alone
+        # on the card): phase 11 (d), 12 (b)'s second call, 13 (d)
+        runs = dict(preset_cli=bf16["cli"]["args"],
+                    convergence_study=conv["resume_args"], **study_runs(tmp))
+        with beside(runs) as done:
+            bench = bench_phase(dev)
+            stamp("phase 14")
+        check_preset_cli(bf16["cli"], done["preset_cli"])
+        check_study_resume(dev, conv, done["convergence_study"])
+        studies["cli"] = check_studies(done, tmp)
+        stamp("phases 11 (d), 12 (b) and 13 (d) beside phase 14")
+    stamp("the temporary files removed")
     for k, name in zip(kernels, ("K1", "K2", "K3")):
         k["launches_serving"] = {step: v[name]
                                  for step, v in serve["launches"].items()}
@@ -3781,8 +4009,8 @@ def main() -> int:
         f"{gt['eager']['peak_memory_gib']:.2f} / "
         f"{gt['replay']['peak_reserved_gib']:.2f}); loss "
         f"{tr['loss_first5']:.4f} -> {tr['loss_last5']:.4f}; --preset tpu "
-        f"{bf16['cli']['wall_s']:.1f} s; phase 11 wall time "
-        f"{bf16['wall_s']:.1f} s on {card}")
+        f"within {bf16['cli']['wall_s']:.1f} s (beside phase 14); phase 11 "
+        f"wall time {bf16['wall_s']:.1f} s on {card}")
     for k, name in zip(kernels, ("K1", "K2")):
         # phase 12 (b): the study's held-out evaluation
         k["launches_convergence"] = conv["study"]["eval"]["launches"][name]
@@ -3798,9 +4026,8 @@ def main() -> int:
         f"{conv['mulaw']['snr_db_mean']} dB; phase 12 wall time "
         f"{conv['wall_s']:.1f} s on {card}")
     for k, name in zip(kernels, ("K1", "K2", "K3")):
-        # phase 13 (b) (in the replays' trace) and (c) (the eager call)
+        # phase 13 (c) (the eager call)
         k["launches_studies"] = {
-            "serving_load": studies["load"]["launches"][name],
             "synth_sweep": {"K2": studies["sweep"]["k2_launches"],
                             "K3": studies["sweep"]["k3_launches"]}.get(
                                 name, 0)}
@@ -3825,15 +4052,43 @@ def main() -> int:
         "bound_ms": post["bound_ms"], "bound_by": post["bound_by"],
         "floor_ms": k4["floor_ms"], "plan": post["plan"],
         "flops": post["flops"], "bytes": post["bytes"]})
-    ld, sw, cli = studies["load"], studies["sweep"], studies["cli"]
+    sw, cli = studies["sweep"], studies["cli"]
     log(f"[studies] bf16-weight K4 {post['ms']:.4f} ms (float32 "
         f"{post['f32_ms']:.4f}) post-net, {enc['ms']:.4f} ms (float32 "
-        f"{enc['f32_ms']:.4f}) encoder; serving_load {ld['calls']} calls, "
-        f"launches {ld['launches']}, {ld['wall_s']:.1f} s; synth_sweep "
+        f"{enc['f32_ms']:.4f}) encoder; synth_sweep "
         f"pallas at batch 16 {sw['batch_seconds']} s replayed, "
-        f"{sw['eager_seconds']} s eager; bf16_study {cli['bf16_s']:.1f} s, "
-        f"batch_study {cli['batch_s']:.1f} s; phase 13 wall time "
-        f"{studies['wall_s']:.1f} s on {card}")
+        f"{sw['eager_seconds']} s eager; bf16_study within "
+        f"{cli['bf16_s']:.1f} s, batch_study within {cli['batch_s']:.1f} s "
+        f"(beside phase 14); phase 13 "
+        f"wall time {studies['wall_s']:.1f} s ((a) and (c)) on {card}")
+    d = bench["record"]["detail"]
+    log(f"[bench] python -m tacotron_tpu_torch.bench's run() in process at "
+        f"full width, batch 32 x 50 steps, {BENCH_COUNTS}: headline "
+        f"{bench['headline']}; raw program {d['device_batch_seconds']:.4f} "
+        f"s replayed, {d['eager_device_batch_seconds']:.4f} s eager; "
+        f"serving {d['serving_batch_seconds']:.4f} s replayed, "
+        f"{d['eager_serving_batch_seconds']:.4f} s eager; train step "
+        f"{d['training_step_seconds']:.4f} s replayed, "
+        f"{d['eager_training_step_seconds']:.4f} s eager; prewarm "
+        f"{d['prewarm_s']:.1f} s; first calls' launches {d['launches']} "
+        f"(as derived); launches over the run {bench['counted']} (the eager "
+        f"rows' timed calls and the first calls), in the captures "
+        f"{bench['in_captures']}; serving_load {bench['load_calls']} calls, "
+        f"{bench['load_trace']} in the trace (31 K2 a call); replays "
+        f"against eager {d['replay_vs_eager']}; kernels against their "
+        f"plain versions at the run's shapes "
+        f"{ {k: float(f'{v:.3e}') for k, v in bench['kernel_err'].items()} }"
+        f"; run {bench['wall_s']:.1f} s, checks {bench['check_s']:.1f} s, "
+        f"beside phase 11 (d)'s CLI, 12 (b)'s second call and 13 (d)'s "
+        f"studies, on {card}")
+    for k, name in zip(kernels, ("K1", "K2", "K3")):
+        # phase 14: each section's first call, every eager call of the
+        # run, and the load's replays counted in a trace
+        k["launches_bench"] = {
+            "first_calls": {sec: v.get(name, 0)
+                            for sec, v in d["launches"].items()},
+            "eager_calls": bench["counted"][name],
+            "serving_load_trace": bench["load_trace"][name]}
     for k in kernels:
         gemm = (f", cuBLAS products {k['gemm_library_ms']:.4f} ms, "
                 f"{k['tflops']:.1f} TFLOP/s" if "tflops" in k else "")

@@ -27,6 +27,15 @@ from ..train.step import Batch
 from .feeder import PAD, DataFeeder, Example
 
 
+def assemble_batch(store: Dict[str, torch.Tensor], small: Batch,
+                   indices: torch.Tensor) -> Batch:
+    """One on-device gather per big tensor of ``store`` -> the full
+    :class:`Batch` (``small`` and ``indices`` already on the store's
+    device)."""
+    return small._replace(**{k: v.index_select(0, indices.long())
+                             for k, v in store.items()})
+
+
 class ResidentDataFeeder(DataFeeder):
     """DataFeeder whose queue carries ``(small_batch, indices)`` and whose
     big tensors are gathered from a one-time device upload.
@@ -127,10 +136,8 @@ class ResidentDataFeeder(DataFeeder):
 
     def assemble(self, store: Dict[str, torch.Tensor], small: Batch,
                  indices: torch.Tensor) -> Batch:
-        """One on-device gather per big tensor -> the full :class:`Batch`
-        (``small`` and ``indices`` already on the store's device)."""
-        return small._replace(**{k: v.index_select(0, indices.long())
-                                 for k, v in store.items()})
+        """:func:`assemble_batch` of this feeder's store."""
+        return assemble_batch(store, small, indices)
 
     # --------------------------------------------------- feeder overrides
 

@@ -165,6 +165,17 @@ def prepare_magnitudes(magnitude: torch.Tensor, n_fft: int):
     return mag_e_s.contiguous(), mag_o_s.contiguous()
 
 
+def iteration_flops(rows: int, n_fft: int) -> int:
+    """Matrix-product FLOPs of one u/v Griffin-Lim iteration over ``rows``
+    frames: two forward products (u against the even bins, v against the
+    odd) and their two inverses, 2 x M x (ne + no) multiply-adds each
+    way.  The bound of the kernel chain and the benchmark's roofline both
+    count this."""
+    M = n_fft // 2
+    ne, no = M // 2 + 1, M // 2
+    return 8 * rows * M * (ne + no)
+
+
 def frame_rows(n_frames: int) -> int:
     """Ta: the frame axis of the magnitudes, padded to ROW_ALIGN."""
     return round_up(n_frames, ROW_ALIGN)

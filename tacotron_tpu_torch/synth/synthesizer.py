@@ -437,6 +437,13 @@ class Synthesizer:
     FAST_GRIFFIN_LIM_ITERS = 30
     FAST_GRIFFIN_LIM_MOMENTUM = 0.99
 
+    @classmethod
+    def fast_audio(cls, audio):
+        """``audio`` with the fast vocoder's iterations and momentum."""
+        return dataclasses.replace(
+            audio, griffin_lim_iters=cls.FAST_GRIFFIN_LIM_ITERS,
+            griffin_lim_momentum=cls.FAST_GRIFFIN_LIM_MOMENTUM)
+
     def __init__(self, device=None):
         self.device = resolve_device(device)
         # fp32 parity with the reference: no TF32 in matmuls or cuDNN
@@ -513,11 +520,8 @@ class Synthesizer:
         """Decode -> attention trim -> masked batched Griffin-Lim -> packed
         waveform (int16 rows + ends row + dB*100 denominator row, or the
         uint8 mu-law layout).  Returns (packed, alignments) on the device."""
-        audio_cfg = self.config.audio
-        if fast:
-            audio_cfg = dataclasses.replace(
-                audio_cfg, griffin_lim_iters=self.FAST_GRIFFIN_LIM_ITERS,
-                griffin_lim_momentum=self.FAST_GRIFFIN_LIM_MOMENTUM)
+        audio_cfg = (self.fast_audio(self.config.audio) if fast
+                     else self.config.audio)
         r = self.config.model.reduction_factor
         out = self._forward(inputs, input_lengths, speaker_id, manual,
                             is_manual, max_steps)

@@ -32,7 +32,7 @@ import os
 from ..config import Config, load_config
 from ..synth.synthesizer import resolve_device
 from ..utils import prepare_dirs
-from .driver import train
+from .driver import PREFETCH_DEPTH, train
 
 
 def build_config(args, data_paths) -> Config:
@@ -100,7 +100,8 @@ def main(argv=None) -> None:
     parser.add_argument("--profile", action="store_true",
                         help="torch.profiler trace of steps 10-15 into "
                              "<run_dir>/profile")
-    parser.add_argument("--prefetch_depth", type=int, default=2,
+    parser.add_argument("--prefetch_depth", type=int,
+                        default=PREFETCH_DEPTH,
                         help="batches copied to the card ahead of the step "
                              "on a side stream; 0 = copy on the critical "
                              "path")

@@ -68,6 +68,11 @@ def debug_string(config: Config) -> str:
     return config.debug_string()
 
 
+#: batches copied to the card ahead of the step (``train``'s default and
+#: the CLI's)
+PREFETCH_DEPTH = 2
+
+
 def train(run_dir: str, data_paths: Sequence[str], config: Config,
           num_steps: int = 100000,
           load_path: Optional[str] = None,
@@ -82,7 +87,7 @@ def train(run_dir: str, data_paths: Sequence[str], config: Config,
           blacklists: Sequence[str] = (),
           prewarm: bool = False,
           sync_every: int = 25,
-          prefetch_depth: int = 2,
+          prefetch_depth: int = PREFETCH_DEPTH,
           max_seconds: Optional[float] = None,
           device=None, plan=None) -> TrainState:
     """Run the training loop on ``device`` (None: the card; raises without

@@ -27,7 +27,7 @@ assert not bad, bad
 assert {f"tacotron_tpu_torch.studies.{m}" for m in (
     "make_synthetic_corpus", "convergence_study", "mulaw_quality",
     "serving_load", "synth_sweep", "bf16_study", "batch_study")
-    } <= set(names), names
+    } | {"tacotron_tpu_torch.bench"} <= set(names), names
 """
 
 # an import of JAX, flax or optax, or any mention of the JAX package as a
