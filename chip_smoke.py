@@ -86,7 +86,11 @@
    and replayed: the same ends, alignments and waveforms (limit 1e-6 of
    the peak), the same launches, and both walls and idle shares; (b) 32
    sentences at chunks of 16 (one program replayed twice in one call) and
-   replays out of capture order, equal to eager; (c) the app's 21
+   replays out of capture order, equal to eager, and the device clock
+   stamps (``csrc/stamp.cu``) of one more such call: the last chunk's
+   three in order and within the call's wall, the decode and vocoder
+   device ms that every chunk's stamps give positive and together within
+   it (logged beside the kernels); (c) the app's 21
    programs, then phase 7 (e)'s requests under a trace (K1 on the short
    ones, K2 on the long POST), replayed; (d) ``train(..., prewarm=True)``
    for 10 steps and a resume to 15 on phase 6's corpus and seed: every
@@ -1632,6 +1636,35 @@ def replay_once(s, call, what: str, want: dict) -> None:
     compare_results(got, want, what)
 
 
+def check_chunk_stamps(s, call, what: str) -> dict:
+    """The device clock stamps of a replayed call (``csrc/stamp.cu``, three
+    a chunk): the last replay's, read from its graph's static output, in
+    order and within the call's wall time; the call's decode and vocoder
+    device ms (``collect_timings``, from every chunk's stamps) positive and
+    together within it."""
+    before = {k: g.replays for k, g in s._graphs.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = call(collect_timings=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    (key,) = [k for k, g in s._graphs.items() if g.replays > before[k]]
+    s0, s1, s2 = s._graphs[key].outputs[2].tolist()
+    require(0 < s0 <= s1 <= s2 and (s2 - s0) / 1e6 <= wall_ms,
+            f"{what}: the last chunk's stamps {[s0, s1, s2]} are out of "
+            f"order or span more than the call's {wall_ms:.3f} ms")
+    t = res["timings"]
+    decode, vocoder = t["decode_device_ms"], t["vocoder_device_ms"]
+    require(t["chunks_replayed"] == t["chunks"] > 0 and decode > 0.0
+            and vocoder > 0.0 and decode + vocoder <= wall_ms,
+            f"{what}: stamps give decode {decode} ms and vocoder {vocoder} "
+            f"ms over {t['chunks_replayed']} of {t['chunks']} chunks "
+            f"replayed, against a {wall_ms:.3f} ms call")
+    return dict(chunks=t["chunks"], wall_ms=wall_ms, decode_ms=decode,
+                vocoder_ms=vocoder, last_chunk_ms=[(s1 - s0) / 1e6,
+                                                   (s2 - s1) / 1e6])
+
+
 def serving_graphs(main: dict, tmp: str) -> dict:
     """Phase 8 (a)-(c): the main path's three calls replayed against eager,
     two chunks of one program and replays out of capture order, then the
@@ -1700,6 +1733,8 @@ def serving_graphs(main: dict, tmp: str) -> dict:
     require(args["batch_sizes"] == (16,), f"(b) chunk sizes {args}")
     s.prewarm(**args)
     replay_once(s, call32, "(b) two chunks of one program", want32)
+    out["stamps"] = check_chunk_stamps(
+        s, lambda **kw: s.synthesize(**kw32, **kw), "(b) stamps")
     _, trace = traced(call32)
     require(trace_counts(trace) == counts_e and counts_e["K1"] > 0,
             f"(b) launches in the replays' trace {trace_counts(trace)} vs "
@@ -1710,9 +1745,13 @@ def serving_graphs(main: dict, tmp: str) -> dict:
         s_, kw_ = main["calls"][name]
         replay_once(s_, lambda: s_.synthesize(**dict(kw_, librosa_trim=False)),
                     f"(b) reordered, call ({name})", eager[name])
+    st = out["stamps"]
     log(f"[graphs] (b) 32 sentences in two chunks of one program: equal to "
         f"eager (launches {counts_e}, the same in the replays' trace); "
-        f"replays out of capture order equal to eager")
+        f"replays out of capture order equal to eager; the chunks' device "
+        f"clock stamps in order, decode {st['decode_ms']:.3f} ms and "
+        f"vocoder {st['vocoder_ms']:.3f} ms of a {st['wall_ms']:.3f} ms "
+        f"call")
 
     # (c) the server after the app's --prewarm; kernels counted in a trace
     t0 = time.perf_counter()
@@ -4098,6 +4137,14 @@ def main() -> int:
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}){floor}, max abs err "
             f"{k['max_abs_err']:.3e}, launches {k['launches']}{gemm}")
+    st = graphs["stamps"]
+    log(f"[kernel] stamp (csrc/stamp.cu, %globaltimer, no TPU counterpart):"
+        f" 3 a chunk, captured; phase 8 (b)'s replayed call of "
+        f"{st['chunks']} chunks: the last chunk's stamps in order, decode "
+        f"{st['last_chunk_ms'][0]:.3f} ms and vocoder "
+        f"{st['last_chunk_ms'][1]:.3f} ms; the call's decode "
+        f"{st['decode_ms']:.3f} ms and vocoder {st['vocoder_ms']:.3f} ms "
+        f"within its {st['wall_ms']:.3f} ms")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ Kept from the JAX package: token/frame axes pad up to multiples of
 ``bucket_size_tokens`` / ``bucket_size_frames`` (or the corpus max), each
 process strides over every directory's file list, and a daemon thread keeps
 a bounded queue of ready batches.  The filter scan reads each file's
-``linear`` even in waveform mode, as the JAX scan does.
+``linear`` even in waveform mode, as the JAX scan does.  Each group's build
+is a ``feeder.group`` span (``utils/trace.py``) with its ``batches``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import numpy as np
 
 from ..config import Config
 from ..train.step import Batch
+from ..utils import trace
 
 PAD = 0
 
@@ -405,7 +407,11 @@ class DataFeeder:
                 self._step += 1
                 yield self._static_batch
                 continue
-            for batch in self._make_group():
+            # .npz loads, sort and padding, on the thread that iterates
+            with trace.span("feeder.group") as group:
+                made = self._make_group()
+                group.attrs["batches"] = len(made)
+            for batch in made:
                 self._step += 1
                 yield batch
 

@@ -28,7 +28,8 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 #: kernel library name -> its source under csrc/
 SOURCES = {"ola": "ola.cu", "gl_fused": "gl_fused.cu",
-           "griffin_lim": "griffin_lim.cu", "gru": "gru.cu"}
+           "griffin_lim": "griffin_lim.cu", "gru": "gru.cu",
+           "stamp": "stamp.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

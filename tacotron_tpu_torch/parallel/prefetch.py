@@ -11,6 +11,11 @@ its copy lands nor its memory reused while a step still reads it.
 One producer and a FIFO queue keep the order: a prefetched run consumes the
 exact batch sequence of the synchronous loop.  On the CPU the thread only
 converts the arrays.
+
+Spans (``utils/trace.py``), their unit id the batch's ordinal: each get is
+``prefetch.get``, with a child ``prefetch.wait`` for the time it blocked on
+an empty queue; each placement is ``prefetch.copy`` on the producer's
+thread.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from ..train.step import Batch, batch_to_device
+from ..utils import trace
 
 
 class DevicePrefetcher:
@@ -41,6 +47,7 @@ class DevicePrefetcher:
         self._queue: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._error: Optional[BaseException] = None
+        self._gets = 0
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
@@ -55,8 +62,12 @@ class DevicePrefetcher:
 
     def _producer(self) -> None:
         try:
+            placed = 0
             while not self._stop.is_set():
-                item = self._place(self._source())
+                batch = self._source()
+                with trace.span("prefetch.copy", unit=placed):
+                    item = self._place(batch)
+                placed += 1
                 while not self._stop.is_set():
                     try:
                         self._queue.put(item, timeout=0.5)
@@ -70,11 +81,26 @@ class DevicePrefetcher:
         """The next batch on the device, in source order, ready to read on
         the current stream.  Blocks until one is ready (or ``timeout``
         seconds pass); re-raises a producer error."""
+        with trace.span("prefetch.get", unit=self._gets):
+            try:
+                batch, event = self._queue.get_nowait()
+            except queue.Empty:
+                with trace.span("prefetch.wait"):
+                    batch, event = self._wait(timeout)
+            self._gets += 1
+            if event is not None:
+                stream = torch.cuda.current_stream(self._device)
+                stream.wait_event(event)
+                for t in batch:
+                    if t is not None:
+                        t.record_stream(stream)
+        return batch
+
+    def _wait(self, timeout: Optional[float]):
         waited = 0.0
         while True:
             try:
-                batch, event = self._queue.get(timeout=0.5)
-                break
+                return self._queue.get(timeout=0.5)
             except queue.Empty:
                 if self._error is not None:
                     raise self._error
@@ -85,13 +111,6 @@ class DevicePrefetcher:
                 waited += 0.5
                 if timeout is not None and waited >= timeout:
                     raise TimeoutError("prefetcher produced no batch in time")
-        if event is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(event)
-            for t in batch:
-                if t is not None:
-                    t.record_stream(stream)
-        return batch
 
     def stop(self) -> None:
         """Stop the producer; safe to call twice.  Queued batches are

@@ -20,6 +20,9 @@ overlap-add kernel), measures:
   of it (``replay``: device busy time and idle share), beside the eager
   call's in the same run.
 
+Each trace also charges the device's idle gaps to the program's spans
+(``idle_ms_by_span``, :class:`TraceWindow`).
+
 Prints one JSON object per rung and writes them all to ``--out``.
 Needs a CUDA card.
 """
@@ -29,12 +32,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
+import threading
 import time
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.misc import card_line
 
 SENTENCES = ["안녕하세요. 만나서 반갑습니다.",
@@ -97,24 +104,65 @@ def kernel_intervals(prof):
     return out
 
 
-def busy_us(intervals) -> float:
-    busy, end = 0.0, -1.0
+def busy_union(intervals, window: Tuple[float, float] = (-math.inf,
+                                                           math.inf)
+               ) -> List[Tuple[float, float]]:
+    """The union of the (name, start_us, end_us) ``intervals`` clipped to
+    ``window``, as disjoint sorted (start_us, end_us) pairs."""
+    w0, w1 = window
+    busy: List[Tuple[float, float]] = []
     for _, s, e in sorted(intervals, key=lambda x: x[1]):
-        if s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
+        s, e = max(s, w0), min(e, w1)
+        if e <= s:
+            continue
+        if busy and s <= busy[-1][1]:
+            busy[-1] = (busy[-1][0], max(busy[-1][1], e))
+        else:
+            busy.append((s, e))
     return busy
 
 
-def device_summary(prof, wall_s: float) -> dict:
-    """From a finished ``torch.profiler`` trace of ``wall_s`` seconds: the
-    device kernels, their busy time (overlaps counted once), the idle share
-    of the wall time (None without a kernel), and the device ms and
-    launches by kernel group."""
-    intervals = kernel_intervals(prof)
+def busy_us(intervals) -> float:
+    """The union's length: the device's busy time."""
+    return sum(e - s for s, e in busy_union(intervals))
+
+
+def idle_by_span(intervals, spans: Sequence[trace.Record],
+                 window: Tuple[float, float]) -> Dict[str, float]:
+    """Each idle gap of the device inside ``window`` (start_us, end_us):
+    the stretches that no interval of ``intervals`` (name, start_us,
+    end_us) covers, in ms, charged to the innermost span of ``spans``
+    (``utils/trace.py`` records, on the same Unix-epoch clock) open at the
+    gap's midpoint, the latest-starting one; to "outside the program's
+    spans" where none is.  The rule of the benchmark's own trace
+    (``perfbench/trace.py``), on the program's spans."""
+    w0, w1 = window
+    gaps, t = [], w0
+    for s, e in busy_union(intervals, window):
+        if s > t:
+            gaps.append((t, s))
+        t = e
+    if w1 > t:
+        gaps.append((t, w1))
+    host = sorted(spans, key=lambda r: r.start_ns)
+    out: Dict[str, float] = {}
+    for a, b in gaps:
+        mid_ns = 0.5 * (a + b) * 1e3
+        name = "outside the program's spans"
+        for r in host:
+            if r.start_ns > mid_ns:
+                break
+            if r.end_ns >= mid_ns:
+                name = r.name
+        out[name] = out.get(name, 0.0) + (b - a) / 1e3
+    return out
+
+
+def device_summary(intervals, wall_s: float) -> dict:
+    """From the device kernels of a finished trace of ``wall_s`` seconds
+    (:func:`kernel_intervals`): their count, their busy time (overlaps
+    counted once), the idle share of the wall time (None without a
+    kernel), and the device ms and launches by kernel group."""
     by_group: dict = {}
     calls: dict = {}
     for name, s, e in intervals:
@@ -137,7 +185,9 @@ class TraceWindow:
     """A ``torch.profiler`` trace from :meth:`start` to :meth:`stop`, the
     device synchronized at both ends: the one definition of a traced
     window's wall time and device idle share (the profiles, the train
-    driver's ``--profile``)."""
+    driver's ``--profile``), and of where the host was while the device
+    idled: the idle gaps charged to the program's spans of the thread that
+    opened the window (:func:`idle_by_span`)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -150,19 +200,29 @@ class TraceWindow:
             activities.append(ProfilerActivity.CUDA)
         self.prof = profile(activities=activities)
         self.prof.__enter__()
+        self.thread = threading.get_ident()
+        # the spans' clock for the join, a monotonic one for the wall time
+        self.t0_ns = time.time_ns()
         self.t0 = time.perf_counter()
         return self
 
     def stop(self, trace_path=None) -> dict:
-        """Close the window: its ``wall_s`` and :func:`device_summary`;
-        the Chrome trace is written to ``trace_path`` when given."""
+        """Close the window: its ``wall_s``, :func:`device_summary` and
+        ``idle_ms_by_span``; the Chrome trace is written to ``trace_path``
+        when given."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        t1_ns = time.time_ns()
         wall = time.perf_counter() - self.t0
         self.prof.__exit__(None, None, None)
         if trace_path:
             self.prof.export_chrome_trace(trace_path)
-        return dict(wall_s=wall, **device_summary(self.prof, wall))
+        intervals = kernel_intervals(self.prof)
+        spans = [r for r in trace.records() if r.thread == self.thread
+                 and r.end_ns >= self.t0_ns and r.start_ns <= t1_ns]
+        return dict(wall_s=wall, **device_summary(intervals, wall),
+                    idle_ms_by_span=idle_by_span(
+                        intervals, spans, (self.t0_ns / 1e3, t1_ns / 1e3)))
 
 
 def profile_rung(synth, rung, repeats: int) -> dict:

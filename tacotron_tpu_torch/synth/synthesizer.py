@@ -26,11 +26,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import itertools
 import math
 import os
 import re
 import threading
-import time
 import warnings
 import wave
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -42,15 +42,20 @@ from ..config import Config
 from ..dsp import chip as dsp_chip
 from ..dsp import host as dsp_host
 from ..models.tacotron import Tacotron
+from ..ops.kernels.stamp import stamp
 from ..params import from_flax, init_random_, load_npz
 from ..text import text_to_sequence
 from ..text.symbols import EOS_ID, vocab_size_for
+from ..utils import trace
 from ..utils.graphs import GraphSet, Graphed
 from ..utils.plot import save_alignment_png
 
 # Decode-step bucket ladder for length-adaptive serving (multiples of 50 up
 # to the reference's 200-step decode cap).
 STEP_LADDER = (50, 100, 150, 200)
+
+# the unit id of a ``synthesize`` call's spans: its number in the process
+_CALLS = itertools.count()
 
 # Decoder steps per input token, sized to the worst case the reference's
 # corpus filter admits (796 frames at min_tokens = 50).
@@ -456,7 +461,7 @@ class Synthesizer:
         self.model: Optional[Tacotron] = None
         # (bucket, steps, manual, trim, fast, wire, chunk size) -> graph
         self._graphs: Dict[tuple, Graphed] = {}
-        self._graph_set = GraphSet(self.device)
+        self._graph_set = GraphSet(self.device, owner="synth")
         # a graph's static buffers serve one call at a time
         self._graph_lock = threading.Lock()
 
@@ -519,12 +524,18 @@ class Synthesizer:
                       wire: str):
         """Decode -> attention trim -> masked batched Griffin-Lim -> packed
         waveform (int16 rows + ends row + dB*100 denominator row, or the
-        uint8 mu-law layout).  Returns (packed, alignments) on the device."""
+        uint8 mu-law layout).  Returns (packed, alignments, stamps) on the
+        device: ``stamps`` the clock (ns; ``ops/kernels/stamp.py``) in
+        stream order before the decode, after the decode and post-net, and
+        after the pack."""
         audio_cfg = (self.fast_audio(self.config.audio) if fast
                      else self.config.audio)
         r = self.config.model.reduction_factor
+        stamps = torch.empty(3, dtype=torch.int64, device=inputs.device)
+        stamp(stamps, 0)
         out = self._forward(inputs, input_lengths, speaker_id, manual,
                             is_manual, max_steps)
+        stamp(stamps, 1)
         linear = out["linear_outputs"]                 # [N, steps*r, F]
         aligns = out["alignments"]                     # [N, T_in, steps]
         N, n_frames, _ = linear.shape
@@ -549,14 +560,17 @@ class Synthesizer:
             packed = torch.cat(
                 [wav_q, _u16_rows(ends, S),
                  _u16_rows(denom_q.to(torch.int64) + 32768, S)], dim=0)
-            return packed, aligns
-        wav_i16 = torch.clamp(wavs * (32767.0 / denom),
-                              -32768, 32767).to(torch.int16)
-        extra = torch.zeros((2, S), dtype=torch.int16, device=wavs.device)
-        n = min(N, S)
-        extra[0, :n] = ends[:n].to(torch.int16)
-        extra[1, :n] = denom_q[:n].to(torch.int16)
-        return torch.cat([wav_i16, extra], dim=0), aligns
+        else:
+            wav_i16 = torch.clamp(wavs * (32767.0 / denom),
+                                  -32768, 32767).to(torch.int16)
+            extra = torch.zeros((2, S), dtype=torch.int16,
+                                device=wavs.device)
+            n = min(N, S)
+            extra[0, :n] = ends[:n].to(torch.int16)
+            extra[1, :n] = denom_q[:n].to(torch.int16)
+            packed = torch.cat([wav_i16, extra], dim=0)
+        stamp(stamps, 2)
+        return packed, aligns, stamps
 
     # -------------------------------------------------------------- prewarm
 
@@ -697,193 +711,238 @@ class Synthesizer:
         replays its graph, bit-equal to the eager call; the replays of
         concurrent calls take turns on the graphs' buffers.
 
-        ``collect_timings=True`` (chip path) adds ``timings``: the phases
-        ``frontend_ms`` (text -> padded ids), ``dispatch_ms`` (the device
-        programs' launches), ``device_ms`` (until a one-element fetch from
-        the last chunk returns), ``fetch_ms`` (the bulk copy), ``post_ms``
-        (host unpack and trim) and ``total_ms``.
+        Every call records its phases as spans (``utils/trace.py``; their
+        unit id the call's number in the process): ``synth.call`` around
+        ``synth.frontend`` (text -> padded ids, budget), and on the chip
+        path, per chunk, ``synth.copy_in`` (the padded inputs into a
+        graph's static buffers) and ``synth.replay`` (the replay and the
+        outputs' clones), then ``synth.fetch`` (``synth.device_wait``, a
+        one-element fetch from the last chunk, which returns once every
+        chunk's device work is done, and the bulk copy) and
+        ``synth.unpack`` (unpack, trims, scaling).  A chunk without
+        ``synth.copy_in`` and ``synth.replay`` ran eagerly: a capture miss.
+
+        ``collect_timings=True`` (chip path) adds ``timings``, from those
+        spans: the phases ``frontend_ms``, ``dispatch_ms`` (the device
+        programs' launches: from the frontend's end to the last chunk
+        launched), ``device_ms`` (the device wait), ``fetch_ms`` (the bulk
+        copy), ``post_ms`` (``synth.unpack``) and ``total_ms``, which they
+        sum to; ``copy_in_ms`` and ``replay_ms`` (summed over the chunks),
+        ``decode_device_ms`` and ``vocoder_device_ms`` (the device's clock
+        stamps of each chunk, :meth:`_vocode_chunk`, summed), ``chunks``
+        and ``chunks_replayed``.
         """
         if self.model is None:
             raise RuntimeError("call init_random() or load_variables() first")
-        t_start = time.perf_counter() if collect_timings else 0.0
-        if vocode not in ("chip", "host", "none"):
-            raise ValueError(f"unknown vocode mode {vocode!r}")
-        if wire_format not in ("int16", "mulaw8"):
-            raise ValueError(f"unknown wire_format {wire_format!r}")
-        if wire_format != "int16" and vocode != "chip":
-            raise ValueError("wire_format applies to the chip path only")
-        cfg = self.config
-        dev = self.device
-        if sequences is None:
-            sequences = [text_to_sequence(t, self.cleaner_names(),
-                                          symbol_set=cfg.data.symbol_set)
-                         for t in texts]
-        seq_lens = [len(s) for s in sequences]
-        N = len(sequences)
+        with trace.span("synth.call", unit=next(_CALLS)) as call:
+            with trace.span("synth.frontend") as frontend:
+                if vocode not in ("chip", "host", "none"):
+                    raise ValueError(f"unknown vocode mode {vocode!r}")
+                if wire_format not in ("int16", "mulaw8"):
+                    raise ValueError(f"unknown wire_format {wire_format!r}")
+                if wire_format != "int16" and vocode != "chip":
+                    raise ValueError("wire_format applies to the chip path "
+                                     "only")
+                cfg = self.config
+                dev = self.device
+                if sequences is None:
+                    sequences = [text_to_sequence(
+                        t, self.cleaner_names(),
+                        symbol_set=cfg.data.symbol_set) for t in texts]
+                seq_lens = [len(s) for s in sequences]
+                N = len(sequences)
+                call.attrs["texts"] = N
 
-        adaptive = max_steps is None
-        bucket, steps = self._budget(seq_lens, max_steps, token_bucket)
-        inputs = np.zeros((N, bucket), np.int64)
-        for i, s in enumerate(sequences):
-            inputs[i, :len(s)] = s
-        # lengths include the EOS token; sequences without one use their
-        # true length
-        has_eos = (inputs == EOS_ID).any(axis=1)
-        input_lengths = np.where(
-            has_eos, np.argmax(inputs == EOS_ID, axis=1) + 1,
-            np.asarray(seq_lens)).astype(np.int64)
+                adaptive = max_steps is None
+                bucket, steps = self._budget(seq_lens, max_steps,
+                                             token_bucket)
+                inputs = np.zeros((N, bucket), np.int64)
+                for i, s in enumerate(sequences):
+                    inputs[i, :len(s)] = s
+                # lengths include the EOS token; sequences without one use
+                # their true length
+                has_eos = (inputs == EOS_ID).any(axis=1)
+                input_lengths = np.where(
+                    has_eos, np.argmax(inputs == EOS_ID, axis=1) + 1,
+                    np.asarray(seq_lens)).astype(np.int64)
 
-        spk = None
-        if cfg.model.num_speakers > 1:
-            spk = (np.asarray(speaker_ids, np.int64)
-                   if speaker_ids is not None else np.zeros((N,), np.int64))
+                spk = None
+                if cfg.model.num_speakers > 1:
+                    spk = (np.asarray(speaker_ids, np.int64)
+                           if speaker_ids is not None
+                           else np.zeros((N,), np.int64))
 
-        man = None
-        is_manual = torch.tensor(manual_alignments is not None, device=dev)
-        if manual_alignments is not None:
-            # [N, T_in, T_dec] -> [N, T_dec, T_in], cropped/padded
-            man = np.zeros((N, steps, bucket), np.float32)
-            src = np.transpose(manual_alignments, (0, 2, 1))
-            man[:, :min(steps, src.shape[1]), :min(bucket, src.shape[2])] = \
-                src[:, :steps, :bucket]
+                man = None
+                is_manual = torch.tensor(manual_alignments is not None,
+                                         device=dev)
+                if manual_alignments is not None:
+                    # [N, T_in, T_dec] -> [N, T_dec, T_in], cropped/padded
+                    man = np.zeros((N, steps, bucket), np.float32)
+                    src = np.transpose(manual_alignments, (0, 2, 1))
+                    man[:, :min(steps, src.shape[1]),
+                        :min(bucket, src.shape[2])] = \
+                        src[:, :steps, :bucket]
 
-        def on_device(arr):
-            return None if arr is None else torch.from_numpy(arr).to(dev)
+            def on_device(arr):
+                return None if arr is None else torch.from_numpy(arr).to(dev)
 
-        if manual_attention_mode > 0:
-            # first pass for the computed alignments only, then decode again
-            # with their post-hoc transform as manual alignments
-            out = self._forward(on_device(inputs), on_device(input_lengths),
-                                on_device(spk), on_device(man), is_manual,
-                                steps)
-            new_man = posthoc_attention(out["alignments"].cpu().numpy(),
-                                        manual_attention_mode)
-            return self.synthesize(
-                sequences=sequences, speaker_ids=speaker_ids,
-                max_steps=steps, manual_alignments=new_man,
-                attention_trim=attention_trim, librosa_trim=librosa_trim,
-                vocode=vocode, token_bucket=token_bucket,
-                return_alignments=return_alignments,
-                fast_vocoder=fast_vocoder, collect_timings=collect_timings,
-                wire_format=wire_format)
+            if manual_attention_mode > 0:
+                # first pass for the computed alignments only, then decode
+                # again with their post-hoc transform as manual alignments
+                out = self._forward(on_device(inputs),
+                                    on_device(input_lengths),
+                                    on_device(spk), on_device(man), is_manual,
+                                    steps)
+                new_man = posthoc_attention(out["alignments"].cpu().numpy(),
+                                            manual_attention_mode)
+                return self.synthesize(
+                    sequences=sequences, speaker_ids=speaker_ids,
+                    max_steps=steps, manual_alignments=new_man,
+                    attention_trim=attention_trim, librosa_trim=librosa_trim,
+                    vocode=vocode, token_bucket=token_bucket,
+                    return_alignments=return_alignments,
+                    fast_vocoder=fast_vocoder,
+                    collect_timings=collect_timings, wire_format=wire_format)
 
-        r = cfg.model.reduction_factor
-        hop = cfg.audio.hop_length
-        full_frames = steps * r
-        wavs: List[np.ndarray] = []
-        aligns: List[np.ndarray] = []
-        all_ends: List[int] = []
-        specs: Optional[List[np.ndarray]] = None
-        timings: Optional[Dict[str, float]] = None
-        t_frontend = time.perf_counter() if collect_timings else 0.0
+            r = cfg.model.reduction_factor
+            hop = cfg.audio.hop_length
+            full_frames = steps * r
+            wavs: List[np.ndarray] = []
+            aligns: List[np.ndarray] = []
+            all_ends: List[int] = []
+            specs: Optional[List[np.ndarray]] = None
+            copies: List[trace.Span] = []
+            replays: List[trace.Span] = []
 
-        if vocode == "chip":
-            def padded(arr, nb, fill, lo, hi):
-                out = np.full((nb,) + arr.shape[1:], fill, arr.dtype)
-                out[:hi - lo] = arr[lo:hi]
-                return torch.from_numpy(out)
+            if vocode == "chip":
+                def padded(arr, nb, fill, lo, hi):
+                    out = np.full((nb,) + arr.shape[1:], fill, arr.dtype)
+                    out[:hi - lo] = arr[lo:hi]
+                    return torch.from_numpy(out)
 
-            pending = []
-            for lo, hi, nb in self._chunks(N):
-                args = (padded(inputs, nb, 0, lo, hi),
-                        padded(input_lengths, nb, 1, lo, hi),
-                        None if spk is None else padded(spk, nb, 0, lo, hi),
-                        None if man is None else padded(man, nb, 0, lo, hi),
-                        is_manual)
-                graphed = self._graphs.get(
-                    (bucket, steps, man is not None, bool(attention_trim),
-                     bool(fast_vocoder), wire_format, nb))
-                if graphed is None:
-                    out = self._vocode_chunk(
-                        *(None if a is None else a.to(dev) for a in args),
-                        steps, attention_trim, fast_vocoder, wire_format)
-                else:
-                    # the next replay overwrites the graph's outputs
-                    with self._graph_lock:
-                        out = tuple(t.clone() for t in graphed(*args))
-                pending.append((lo, hi, out))
-            if collect_timings:
-                t_dispatch = time.perf_counter()
-                # chunks run in launch order: a one-element fetch from the
-                # last returns once every chunk's device work is done
-                float(pending[-1][2][0][0, 0])
-                t_device = time.perf_counter()
-            fetched = [(lo, hi, packed.cpu().numpy(),
-                        al.cpu().numpy() if return_alignments else None)
-                       for lo, hi, (packed, al) in pending]
-            if collect_timings:
-                t_fetch = time.perf_counter()
-
-            for lo, hi, packed, al in fetched:
-                if wire_format == "mulaw8":
-                    wav_rows = mulaw_decode(packed[:-4])
-                    ends = (packed[-4].astype(np.int32)
-                            | (packed[-3].astype(np.int32) << 8))
-                    denom_db = ((packed[-2].astype(np.int32)
-                                 | (packed[-1].astype(np.int32) << 8))
-                                - 32768).astype(np.float32) / 100.0
-                    scale = 10.0 ** (denom_db / 20.0)
-                else:
-                    wav_rows = packed[:-2]
-                    ends = packed[-2].astype(np.int32)
-                    scale = (10.0 ** (packed[-1].astype(np.float32) / 100.0
-                                      / 20.0)) / 32767.0
-                for i in range(hi - lo):
-                    all_ends.append(int(ends[i]))
-                    n_samples = min(wav_rows.shape[1], int(ends[i]) * hop)
-                    wavs.append(wav_rows[i, :n_samples].astype(np.float32)
-                                * np.float32(scale[i]))
-                    if al is not None:
-                        aligns.append(al[i, :seq_lens[lo + i], :])
-        else:
-            out = self._forward(on_device(inputs), on_device(input_lengths),
-                                on_device(spk), on_device(man), is_manual,
-                                steps)
-            alignments = out["alignments"].cpu().numpy()  # [N, bucket, T_dec]
-            linear = out["linear_outputs"].cpu().numpy()  # [N, T_dec*r, F]
-            specs = []
-            for i in range(N):
-                spec = linear[i]
-                align = alignments[i, :seq_lens[i], :]
-                if attention_trim:
-                    end = attention_trim_index(align, seq_lens[i], r)
-                    spec = spec[:max(end, r)]
-                specs.append(spec)
-                aligns.append(align)
-                all_ends.append(len(spec))
-            if vocode == "host":
-                wavs = [dsp_host.inv_spectrogram(spec.T, cfg.audio)
-                        for spec in specs]
+                pending = []
+                chunks = self._chunks(N)
+                call.attrs["chunks"] = len(chunks)
+                for lo, hi, nb in chunks:
+                    args = (padded(inputs, nb, 0, lo, hi),
+                            padded(input_lengths, nb, 1, lo, hi),
+                            None if spk is None
+                            else padded(spk, nb, 0, lo, hi),
+                            None if man is None
+                            else padded(man, nb, 0, lo, hi),
+                            is_manual)
+                    key = (bucket, steps, man is not None,
+                           bool(attention_trim), bool(fast_vocoder),
+                           wire_format, nb)
+                    graphed = self._graphs.get(key)
+                    if graphed is None:
+                        out = self._vocode_chunk(
+                            *(None if a is None else a.to(dev)
+                              for a in args),
+                            steps, attention_trim, fast_vocoder, wire_format)
+                    else:
+                        # the next replay overwrites the graph's outputs
+                        with self._graph_lock:
+                            with trace.span("synth.copy_in") as copy_in:
+                                graphed.copy_in(*args)
+                            with trace.span("synth.replay") as replay:
+                                out = tuple(t.clone()
+                                            for t in graphed.replay())
+                        copies.append(copy_in)
+                        replays.append(replay)
+                    pending.append((lo, hi, out))
+                with trace.span("synth.fetch") as fetch:
+                    with trace.span("synth.device_wait") as device_wait:
+                        float(pending[-1][2][0][0, 0])
+                    fetched = [(lo, hi, packed.cpu().numpy(),
+                                al.cpu().numpy() if return_alignments
+                                else None)
+                               for lo, hi, (packed, al, _) in pending]
+                    stamps = (torch.stack([out[2] for *_, out in pending])
+                              .cpu().numpy() if collect_timings else None)
             else:
-                wavs = [np.zeros((0,), np.float32) for _ in specs]
+                out = self._forward(on_device(inputs),
+                                    on_device(input_lengths),
+                                    on_device(spk), on_device(man), is_manual,
+                                    steps)
+                # [N, bucket, T_dec] and [N, T_dec*r, F]
+                alignments = out["alignments"].cpu().numpy()
+                linear = out["linear_outputs"].cpu().numpy()
+                specs = []
+                for i in range(N):
+                    spec = linear[i]
+                    align = alignments[i, :seq_lens[i], :]
+                    if attention_trim:
+                        end = attention_trim_index(align, seq_lens[i], r)
+                        spec = spec[:max(end, r)]
+                    specs.append(spec)
+                    aligns.append(align)
+                    all_ends.append(len(spec))
+                if vocode == "host":
+                    wavs = [dsp_host.inv_spectrogram(spec.T, cfg.audio)
+                            for spec in specs]
+                else:
+                    wavs = [np.zeros((0,), np.float32) for _ in specs]
 
-        if librosa_trim and vocode != "none":
-            wavs = [trim_silence_db(w) for w in wavs]
-        budget_hits = sum(e >= full_frames for e in all_ends)
-        if adaptive and attention_trim and budget_hits \
-                and steps < cfg.model.max_iters:
-            warnings.warn(
-                f"{budget_hits}/{N} utterance(s) consumed the entire "
-                f"adaptive decode budget ({steps} steps at "
-                f"{cfg.model.steps_per_token} steps/token) and may be "
-                f"truncated; raise ModelConfig.steps_per_token or pass "
-                f"max_steps explicitly", stacklevel=2)
+            with trace.span("synth.unpack") as unpack:
+                if vocode == "chip":
+                    for lo, hi, packed, al in fetched:
+                        if wire_format == "mulaw8":
+                            wav_rows = mulaw_decode(packed[:-4])
+                            ends = (packed[-4].astype(np.int32)
+                                    | (packed[-3].astype(np.int32) << 8))
+                            denom_db = ((packed[-2].astype(np.int32)
+                                         | (packed[-1].astype(np.int32)
+                                            << 8))
+                                        - 32768).astype(np.float32) / 100.0
+                            scale = 10.0 ** (denom_db / 20.0)
+                        else:
+                            wav_rows = packed[:-2]
+                            ends = packed[-2].astype(np.int32)
+                            scale = (10.0 ** (packed[-1].astype(np.float32)
+                                              / 100.0 / 20.0)) / 32767.0
+                        for i in range(hi - lo):
+                            all_ends.append(int(ends[i]))
+                            n_samples = min(wav_rows.shape[1],
+                                            int(ends[i]) * hop)
+                            wavs.append(
+                                wav_rows[i, :n_samples].astype(np.float32)
+                                * np.float32(scale[i]))
+                            if al is not None:
+                                aligns.append(al[i, :seq_lens[lo + i], :])
 
-        if collect_timings and vocode == "chip":
-            t_end = time.perf_counter()
-            timings = {
-                "frontend_ms": (t_frontend - t_start) * 1e3,
-                "dispatch_ms": (t_dispatch - t_frontend) * 1e3,
-                "device_ms": (t_device - t_dispatch) * 1e3,
-                "fetch_ms": (t_fetch - t_device) * 1e3,
-                "post_ms": (t_end - t_fetch) * 1e3,
-                "total_ms": (t_end - t_start) * 1e3,
-            }
+                if librosa_trim and vocode != "none":
+                    wavs = [trim_silence_db(w) for w in wavs]
+                budget_hits = sum(e >= full_frames for e in all_ends)
+                if adaptive and attention_trim and budget_hits \
+                        and steps < cfg.model.max_iters:
+                    warnings.warn(
+                        f"{budget_hits}/{N} utterance(s) consumed the "
+                        f"entire adaptive decode budget ({steps} steps at "
+                        f"{cfg.model.steps_per_token} steps/token) and may "
+                        f"be truncated; raise ModelConfig.steps_per_token "
+                        f"or pass max_steps explicitly", stacklevel=2)
 
         result = {"wavs": wavs, "alignments": aligns, "linear": specs,
                   "sequences": list(sequences), "ends": all_ends}
-        if timings is not None:
-            result["timings"] = timings
+        if collect_timings and vocode == "chip":
+            device_ms = device_wait.ms
+            result["timings"] = {
+                "frontend_ms": (frontend.end_ns - call.start_ns) / 1e6,
+                "dispatch_ms": (fetch.start_ns - frontend.end_ns) / 1e6,
+                "device_ms": device_ms,
+                "fetch_ms": fetch.ms - device_ms,
+                "post_ms": (unpack.end_ns - fetch.end_ns) / 1e6,
+                "total_ms": (unpack.end_ns - call.start_ns) / 1e6,
+                "copy_in_ms": sum(s.ms for s in copies),
+                "replay_ms": sum(s.ms for s in replays),
+                "decode_device_ms": float(
+                    (stamps[:, 1] - stamps[:, 0]).sum()) / 1e6,
+                "vocoder_device_ms": float(
+                    (stamps[:, 2] - stamps[:, 1]).sum()) / 1e6,
+                "chunks": len(pending),
+                "chunks_replayed": len(replays),
+            }
         return result
 
     def synthesize_robust(self, texts: Optional[Sequence[str]] = None,

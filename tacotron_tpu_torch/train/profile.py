@@ -5,17 +5,8 @@
 Builds the full-width Deep Voice 2 model (``Config()``, two speakers,
 random weights from ``--seed``) and a synthetic corpus
 (``data/synthetic.py``: 2 speakers x 32 utterances of 120-400 frames), and
-takes batches of 16 from ``DataFeeder``.  For each layer of a train step
-it measures:
+takes batches of 16 from ``DataFeeder``.  It measures:
 
-- the host wall time, synchronized around the layer alone (median and
-  mean over ``--repeats`` batches): ``feeder`` (the next host batch of a
-  built group; building a group of ``batches_per_group`` batches, which
-  the feeder's thread does once per group, is ``feeder_group_ms``),
-  ``copy`` (host to device),
-  ``forward`` (teacher-forced, training mode, with the losses),
-  ``backward``, ``optimizer`` (clip, Adam, schedule) and ``flush`` (one
-  step's metrics stacked and copied to the host);
 - one ``torch.profiler`` trace of the forward, the backward and the
   optimizer of one batch, each alone: device kernels, busy time, idle share
   and device time by kernel group;
@@ -25,6 +16,12 @@ it measures:
   batch shape (``TrainStep.prewarm``): ``replay`` holds their wall time,
   target frames per second and peak memory, ``replay_traced`` one trace,
   and ``prewarm_s`` the capture's time;
+- ``spans``: the same batches' replayed steps fed through
+  ``DevicePrefetcher`` as the train driver feeds them, by the program's
+  spans (``utils/trace.py``): ``train.step`` and its ``train.copy_in`` and
+  ``train.replay``, ``prefetch.get``, ``prefetch.wait`` and
+  ``prefetch.copy``, with the run's ``feeder.group`` builds (count, total
+  and mean host ms each);
 - ``roofline``: the matmul FLOPs of each timed step at its batch's padded
   shape (``train/roofline.py``) and the model FLOP utilization of the eager
   and the replayed steps against the H100's float32 peak (median over the
@@ -37,6 +34,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import itertools
 import json
 import statistics
 import tempfile
@@ -47,14 +46,14 @@ import torch
 from ..config import Config
 from ..data.feeder import DataFeeder
 from ..data.synthetic import write_synthetic_corpus
+from ..parallel.prefetch import DevicePrefetcher
 from ..synth.profile import TraceWindow
+from ..utils import trace
 from ..utils.misc import card_line
 from .optim import Optimizer
 from .roofline import H100_FP32_PEAK_TFLOPS, forward_flops, mfu
 from .state import create_train_state
 from .step import batch_to_device, forward_loss, make_train_step
-
-PHASES = ("feeder", "copy", "forward", "backward", "optimizer", "flush")
 
 
 def traced(fn, dev) -> dict:
@@ -118,6 +117,15 @@ def roofline(config, batches, *timings) -> dict:
                 for timing in timings]}
 
 
+def span_summary(records) -> dict:
+    """name -> count, total and mean host ms of ``records``."""
+    ms: dict = {}
+    for r in records:
+        ms.setdefault(r.name, []).append(r.ms)
+    return {k: {"count": len(v), "total_ms": sum(v),
+                "mean_ms": statistics.fmean(v)} for k, v in sorted(ms.items())}
+
+
 def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
     base = Config()
     cfg = base.replace(
@@ -129,49 +137,15 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
     torch.backends.cudnn.deterministic = True  # as the driver trains
     with tempfile.TemporaryDirectory() as tmp:
         dirs = write_synthetic_corpus(tmp, cfg, seed=seed)
+        run_start = time.time_ns()
         batches = DataFeeder(dirs, cfg, seed=seed).batches()
-        t0 = time.perf_counter()
-        first = next(batches)          # builds the first sorted group
-        group_ms = (time.perf_counter() - t0) * 1e3
         state = create_train_state(cfg, seed=seed, device=dev)
         model = state.model
         params = state.parameters()
         optimizer = Optimizer(cfg.train)
         step_fn = make_train_step(cfg)
-        step_fn(state, batch_to_device(first, dev), 0)  # warm-up
+        step_fn(state, batch_to_device(next(batches), dev), 0)  # warm-up
         torch.cuda.synchronize()
-
-        times = {k: [] for k in PHASES}
-        frames, padded = [], []
-        for _ in range(repeats):
-            t0 = time.perf_counter()
-            host = next(batches)
-            t1 = time.perf_counter()
-            batch = batch_to_device(host, dev)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            gen = torch.Generator(device=dev).manual_seed(0)
-            losses, outputs = forward_loss(model, cfg, batch, gen)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            losses["loss"].backward()
-            torch.cuda.synchronize()
-            t4 = time.perf_counter()
-            optimizer.update(params, [p.grad for p in params], state.opt)
-            for p in params:
-                p.grad = None
-            torch.cuda.synchronize()
-            t5 = time.perf_counter()
-            torch.stack([v.detach().float() for v in losses.values()]).cpu()
-            t6 = time.perf_counter()
-            for k, a, b in zip(PHASES, (t0, t1, t2, t3, t4, t5),
-                               (t1, t2, t3, t4, t5, t6)):
-                times[k].append((b - a) * 1e3)
-            frames.append(int(host.target_lengths.sum()))
-            padded.append(tuple(host.mel_targets.shape[:2]))
-        # the last step's autograd graph would pin the parameters' gradient
-        # accumulators to the default stream and fail the captures below
-        del losses, outputs
 
         batch = batch_to_device(next(batches), dev)
         out: dict = {}
@@ -181,7 +155,9 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
                 model, cfg, batch, gen)[0]), dev)
         out["backward"] = traced(lambda: out["losses"]["loss"].backward(),
                                  dev)
-        del out["losses"]  # its autograd graph would block the captures
+        # its autograd graph would pin the parameters' gradient accumulators
+        # to the default stream and fail the captures below
+        del out["losses"]
         out["optimizer"] = traced(lambda: optimizer.update(
             params, [p.grad for p in params], state.opt), dev)
         for p in params:
@@ -201,13 +177,26 @@ def profile_train_step(dev, seed: int = 0, repeats: int = 5) -> dict:
         replay = time_train_steps(state, graph_fn, iter(host), 0, repeats)
         replay_traced = traced(lambda: graph_fn(state, b, 0), dev)
 
+        fed_start = time.time_ns()
+        prefetcher = DevicePrefetcher(
+            functools.partial(next, itertools.cycle(host)), dev)
+        try:
+            for _ in host:
+                graph_fn(state, prefetcher.get(), 0)
+            torch.cuda.synchronize(dev)
+        finally:
+            prefetcher.stop()
+        spans = span_summary(
+            r for r in trace.records()
+            if (r.start_ns >= fed_start and r.name.startswith(
+                ("train.", "prefetch.")))
+            or (r.start_ns >= run_start and r.name == "feeder.group"))
+
     return {
-        "batch": cfg.train.batch_size, "true_frames": frames,
-        "padded_shape": padded,
-        "layers_ms": {k: {"median": statistics.median(v),
-                          "mean": statistics.fmean(v)}
-                      for k, v in times.items()},
-        "feeder_group_ms": group_ms,
+        "batch": cfg.train.batch_size,
+        "true_frames": [int(h.target_lengths.sum()) for h in host[1:]],
+        "padded_shape": [tuple(h.mel_targets.shape[:2]) for h in host[1:]],
+        "spans": spans,
         "traced": {k: out[k] for k in ("forward", "backward", "optimizer")},
         **steps, "step_traced": whole,
         "graphs": n_graphs, "prewarm_s": prewarm_s, "replay": replay,

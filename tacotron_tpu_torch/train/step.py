@@ -30,6 +30,7 @@ import torch
 
 from ..dsp.chip import features_from_waveform
 from ..parallel.collectives import flat_all_reduce
+from ..utils import trace
 from ..utils.graphs import GraphSet, Graphed, arg_key
 from .losses import guided_attention_loss, tacotron_loss
 from .optim import Optimizer, global_norm
@@ -169,6 +170,10 @@ class TrainStep:
     ``torch.full((), step)`` or a fresh generator per step would freeze the
     capture's.
 
+    Each call is a ``train.step`` span (``utils/trace.py``; its unit id
+    the step number) around ``train.copy_in`` and ``train.replay``, or
+    ``train.eager_step`` for a batch of a shape no graph holds.
+
     :meth:`prewarm` captures the step once per batch shape, on the state's
     own tensors (a graph keeps their addresses); a batch of a captured shape
     is then copied into its static buffers and replayed, any other runs
@@ -252,18 +257,24 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch: Batch,
                  seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        self._check(state, batch)
-        step_t, generator = self._slots_on(state.parameters()[0].device)
-        step_t.fill_(state.step)
-        generator.manual_seed(dropout_seed(seed, state.step))
-        graphed = self._graphs.get(arg_key(batch))
-        if graphed is None:
-            metrics = self._device_step(state, batch)
-        elif state is not self._graphed_state:
-            raise ValueError("the step was prewarmed on another TrainState")
-        else:
-            metrics = graphed(*batch)
-        state.step += 1
+        with trace.span("train.step", unit=state.step):
+            self._check(state, batch)
+            step_t, generator = self._slots_on(state.parameters()[0].device)
+            step_t.fill_(state.step)
+            generator.manual_seed(dropout_seed(seed, state.step))
+            graphed = self._graphs.get(arg_key(batch))
+            if graphed is None:
+                with trace.span("train.eager_step"):
+                    metrics = self._device_step(state, batch)
+            elif state is not self._graphed_state:
+                raise ValueError(
+                    "the step was prewarmed on another TrainState")
+            else:
+                with trace.span("train.copy_in"):
+                    graphed.copy_in(*batch)
+                with trace.span("train.replay"):
+                    metrics = graphed.replay()
+            state.step += 1
         return state, metrics
 
     def prewarm(self, state: TrainState, batches: Sequence[Batch]) -> int:
@@ -283,7 +294,7 @@ class TrainStep:
         device = state.parameters()[0].device
         gc.collect()  # no graph may be freed inside a capture (utils/graphs)
         if self._graph_set is None:
-            self._graph_set = GraphSet(device)
+            self._graph_set = GraphSet(device, owner="train")
         step_t, generator = self._slots_on(device)
         tensors = (state.parameters() + list(state.model.buffers())
                    + state.opt.m + state.opt.v + [state.opt.count])

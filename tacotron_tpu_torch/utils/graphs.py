@@ -24,8 +24,9 @@ on CUDA, so an owner's graphs sit in no reference cycle with the owner and
 go with it.  For cycles made elsewhere, the prewarms run the collector once
 before their captures, where ``torch.cuda.graph`` collects before each.
 
-A :class:`Graphed` call copies its arguments into the static buffers,
-replays and returns the static outputs, which the next replay of any graph
+A :class:`Graphed` call copies its arguments into the static buffers
+(:meth:`Graphed.copy_in`), replays and returns the static outputs
+(:meth:`Graphed.replay`), which the next replay of any graph
 of the set may overwrite: the caller copies out what it keeps first.  The
 graph keeps the addresses it was captured on, so the buffers, and every
 tensor the function reads or updates in place, must outlive it unmoved.
@@ -40,6 +41,9 @@ copies in, calls the function on the buffers and copies its results into
 the static outputs, so they are overwritten by the next call as a replay's
 are.  A capture or replay failure on CUDA raises; nothing falls back to the
 eager function.
+
+Each capture (warm-up and capture) is a ``graph.capture`` span of
+``utils/trace.py`` with the owner and the arguments' shapes.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ from __future__ import annotations
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from . import trace
 
 
 def _map(fn: Callable, tree: Any) -> Any:
@@ -94,12 +100,21 @@ class Graphed:
         self.replays = 0
 
     def __call__(self, *args: Optional[torch.Tensor]) -> Any:
+        self.copy_in(*args)
+        return self.replay()
+
+    def copy_in(self, *args: Optional[torch.Tensor]) -> None:
+        """Copy ``args`` into the static buffers."""
         if arg_key(args) != self.key:
             raise ValueError(f"arguments {arg_key(args)} do not match the "
                              f"captured {self.key}")
         for buf, x in zip(self.inputs, args):
             if buf is not None:
                 buf.copy_(x)
+
+    def replay(self) -> Any:
+        """Run the function on the static buffers; returns the static
+        outputs."""
         self.replays += 1
         if self.graph is None:
             _copy_into(self.outputs, self.fn(*self.inputs))
@@ -110,10 +125,12 @@ class Graphed:
 
 class GraphSet:
     """The graphs of one owner on ``device``: one memory pool, replayed one
-    at a time on the current stream."""
+    at a time on the current stream.  ``owner`` names it in the capture
+    spans."""
 
-    def __init__(self, device):
+    def __init__(self, device, owner: str = "graphs"):
         self.device = torch.device(device)
+        self.owner = owner
         cuda = self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         # the warm-ups and the captures run here, off the current stream
@@ -123,6 +140,12 @@ class GraphSet:
                 generators: Sequence[torch.Generator] = ()) -> Graphed:
         """``fn(*args)`` warmed up and captured on static copies of
         ``args``; see the module docstring."""
+        with trace.span("graph.capture", owner=self.owner,
+                        key=arg_key(args)):
+            return self._capture(fn, args, generators)
+
+    def _capture(self, fn: Callable, args: Sequence[Optional[torch.Tensor]],
+                 generators: Sequence[torch.Generator]) -> Graphed:
         inputs = [None if a is None else
                   a.detach().to(self.device, copy=True) for a in args]
         if self.device.type != "cuda":

@@ -11,7 +11,9 @@ on the CPU, same weights (``random_variables``), small widths
   spectrograms within 5e-4 (the greedy-decode tolerance of the model
   test), waveforms correlated above 0.999 with a std ratio in
   [0.95, 1.05];
-- ``collect_timings`` splits the call into phases that sum to the total;
+- ``collect_timings`` splits the call into phases that sum to the total,
+  the chunks' copies into the graphs' buffers and replays lie inside the
+  launch phase, and the device stamps split each chunk's time;
 - the single-utterance ``dsp/chip.py`` wrappers agree with JAX's within
   ``test_torch_dsp``'s bound for their engine (3e-3 of the peak,
   correlation above 0.9999).
@@ -361,11 +363,18 @@ def test_collect_timings(pair, manual):
                         manual_attention_mode=manual, collect_timings=True)
     t = res["timings"]
     assert set(t) == {"frontend_ms", "dispatch_ms", "device_ms",
-                      "fetch_ms", "post_ms", "total_ms"}
+                      "fetch_ms", "post_ms", "total_ms", "copy_in_ms",
+                      "replay_ms", "decode_device_ms", "vocoder_device_ms",
+                      "chunks", "chunks_replayed"}
     assert all(v >= 0.0 for v in t.values())
     parts = (t["frontend_ms"] + t["dispatch_ms"] + t["device_ms"]
              + t["fetch_ms"] + t["post_ms"])
     assert abs(parts - t["total_ms"]) < 1.0
+    assert t["copy_in_ms"] + t["replay_ms"] <= t["dispatch_ms"] + 1
+    # the CPU's stamps are the host clock around the chunk's two phases
+    assert 0.0 < t["decode_device_ms"] + t["vocoder_device_ms"] \
+        <= t["dispatch_ms"]
+    assert (t["chunks"], t["chunks_replayed"]) == (1, 0)
     assert "timings" not in ts.synthesize(texts=TEXTS[:1], max_steps=2,
                                           vocode="none",
                                           collect_timings=True)

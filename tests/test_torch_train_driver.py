@@ -369,9 +369,9 @@ def test_train_prewarm_logs_and_keeps_state(corpus, tmp_path, monkeypatch,
     train(eager, corpus, cfg, num_steps=3, device="cpu")
 
     replays = []
-    call = graphs.Graphed.__call__
-    monkeypatch.setattr(graphs.Graphed, "__call__",
-                        lambda self, *a: replays.append(1) or call(self, *a))
+    replay = graphs.Graphed.replay
+    monkeypatch.setattr(graphs.Graphed, "replay",
+                        lambda self: replays.append(1) or replay(self))
     run = str(tmp_path / "run_prewarm")
     state = train(run, corpus, cfg, num_steps=3, device="cpu", prewarm=True)
     assert state.step == 3
