@@ -28,13 +28,21 @@
    random weights from a seed): ``Synthesizer.synthesize`` on four sentences
    at 50 decode steps with the fast vocoder (200 frames: the fused
    Griffin-Lim kernel chain, call (a)), on two sentences at 200 steps with
-   the classic vocoder (800 frames: matmul_half with the overlap-add kernel,
-   call (b)), and on four sentences at 50 steps with the fast vocoder and
-   ``griffin_lim_impl="pallas"`` (the spectral-step kernel and the
-   overlap-add kernel, call (c)).  The kernels' launch counters are zeroed
-   before each call and read after, and the waveforms are checked.  The
-   same weights on the CPU give the same 10-step greedy decode as on the
-   card.
+   the classic vocoder (800 frames, past the fused engine's cap: the
+   spectral-step kernel with the overlap-add kernel, call (b)), and on four
+   sentences at 50 steps with the fast vocoder and
+   ``griffin_lim_impl="pallas"`` (the same kernels, call (c)).  The
+   kernels' launch counters are zeroed before each call and read after,
+   and the waveforms are checked.  The same weights on the CPU give the
+   same 10-step greedy decode as on the card.  (d) The long decodes'
+   vocoder (:func:`long_vocoder`): a replayed two-chunk, 200-step call of
+   32 texts through the spectral-step engine, its launches at capture and
+   in a trace of the replay, a replay that allocates nothing, and its
+   spectral convergence against matmul_half's and the float32 ``"fft"``
+   engine's on the same decode; then matmul_half against the
+   spectral-step engine, replayed, at (batch, frames) (1, 384), (4, 600)
+   and (16, 800) (:func:`time_gl_engines`, an ``[engines]`` line per shape
+   naming the card).
 5. The fused GRU's path: the encoder CBHG's and the post-net's BiGRU inputs
    of a full-width decode (four sentences, 50 steps), run through
    ``bigru_from_params`` (the GRU kernel, counted) and held against the
@@ -136,7 +144,7 @@
    matplotlib is absent), then 4 more steps timed alone (the median step
    time); (e) ``evaluate_speakers`` on ``Synthesizer.load`` of that run for
    both speakers, at 50 steps (K1) and at the default budget on two long
-   texts (K2 where ``fused_supported`` rejects the length), the launch
+   texts (K3 and K2 past the fused engine's frame cap), the launch
    counters zeroed before each and held to the counts the iteration count
    and the engine decision give, the kernel that ran held against its
    plain version at the shapes the call gave it (each vocoder chunk's
@@ -181,8 +189,8 @@
    phase 14) 10 steps more, which resume from the first call's
    checkpoint; both calls exit 0 and write the report's keys; the study's
    held-out evaluation run in this process on the resumed run, each
-   call's K1/K2 launches held to the counts its iterations, ``_budget``
-   and ``fused_supported`` give, the kernel that ran held against its
+   call's K1/K2/K3 launches held to the counts its iterations, ``_budget``
+   and ``resolve_engine`` give, the kernel that ran held against its
    plain version at each chunk's shape;
    (c) ``token_tone_accuracy`` of ``melody_wav`` itself reads 1.0 with a
    wrong-token rate of 0 for every held-out sentence, both speakers,
@@ -742,7 +750,8 @@ def main_path(dev):
         # fused engine), momentum vocoder
         "a": (synth, dict(texts=KOREAN, speaker_ids=[0, 1, 0, 1],
                           max_steps=50, fast_vocoder=True)),
-        # (b) the 200-step rung: 800 frames -> matmul_half + overlap-add
+        # (b) the 200-step rung: 800 frames, past the fused engine's cap ->
+        # spectral step + overlap-add
         "b": (synth, dict(texts=KOREAN[:2], speaker_ids=[1, 0],
                           max_steps=200)),
         # (c) as (a) through the "pallas" engine: spectral step + overlap-add
@@ -768,8 +777,8 @@ def main_path(dev):
         results.update({f"wall_{name}": wall, f"audio_{name}": audio})
     la, lb, lc = launches["a"], launches["b"], launches["c"]
     require(la["K1"] > 0, "call (a) launched no fused Griffin-Lim kernel")
-    require(lb["K2"] > 0, "call (b) launched no overlap-add kernel")
-    require(lb["K1"] == 0, "call (b) should not reach the fused engine")
+    require(lb == {"K1": 0, "K2": 61, "K3": 60},
+            f"call (b) launched {lb}, not K3 60 and K2 61 (one chunk)")
     # one spectral step per iteration and vocoder chunk (4 utterances fit
     # one chunk of 16)
     chunks = -(-len(KOREAN) // Synthesizer.VOCODER_MAX_BATCH)
@@ -777,7 +786,9 @@ def main_path(dev):
             f"call (c) launched K3 {lc['K3']} times, not 30 x {chunks}")
     require(lc["K2"] > 0, "call (c) launched no overlap-add kernel")
     require(lc["K1"] == 0, "call (c) should not reach the fused engine")
-    results.update(launches=launches, synth=synth, calls=calls)
+    results.update(launches=launches, synth=synth, calls=calls,
+                   long_vocoder=long_vocoder(dev),
+                   engines=time_gl_engines(dev))
 
     # the same weights on the CPU: a 10-step greedy decode agrees
     cpu = Synthesizer(device="cpu").init_random(cfg, seed=0)
@@ -804,6 +815,219 @@ def main_path(dev):
     results.update(card_vs_cpu_linear_rel=lin_rel,
                    card_vs_cpu_alignments_abs=al_abs)
     return results
+
+
+#: (batch, frames) of the Griffin-Lim engine timings: the first length past
+#: the fused engine's frame cap, a mid-length batch, and one vocoder chunk of
+#: the long decodes (16 x 800 = 12,800 rows)
+ENGINE_SHAPES = ((1, 384), (4, 600), (16, 800))
+#: how much less consistent with its target magnitudes the spectral-step
+#: engine's waveform may be than matmul_half's (spectral convergence)
+CONVERGENCE_SLACK = 1.05
+
+
+def time_gl_engines(dev) -> dict:
+    """matmul_half against the spectral-step engine that ``"auto"`` runs
+    past the fused engine's cap ("pallas" from matmul_half's start), each
+    captured into a CUDA graph and replayed, at ENGINE_SHAPES: the classic
+    vocoder's iterations on seeded magnitudes, device ms a call (median of
+    10 behind a spin).  Returns {"BxT": {engine: ms}}."""
+    import dataclasses
+
+    from tacotron_tpu_torch.config import AudioConfig
+    from tacotron_tpu_torch.dsp import chip as dsp_chip
+
+    base = AudioConfig()
+    rng = np.random.default_rng(17)
+    out = {}
+    for B, T in ENGINE_SHAPES:
+        mag = torch.from_numpy(rng.random((B, T, base.num_freq),
+                                          dtype=np.float32)).to(dev)
+        ns = (T - 1) * base.hop_length
+        row = {}
+        for impl, engine in (("matmul_half", "matmul_half"),
+                             ("auto", "pallas_half")):
+            cfg = dataclasses.replace(base, griffin_lim_impl=impl)
+            require(dsp_chip.resolve_engine(cfg, T, dev) == engine,
+                    f"{impl} at {T} frames does not resolve to {engine}")
+            replay = graphed(
+                lambda cfg=cfg: dsp_chip.griffin_lim_batched(mag, ns, cfg))
+            row[engine] = time_ms(replay, runs=10)
+        out[f"{B}x{T}"] = row
+        log(f"[engines] B={B} T={T} ({B * T} rows), "
+            f"{base.griffin_lim_iters} iterations replayed: matmul_half "
+            f"{row['matmul_half']:.4f} ms, the route (pallas_half) "
+            f"{row['pallas_half']:.4f} ms "
+            f"({row['matmul_half'] / row['pallas_half']:.2f}x) on "
+            f"{card_line()}")
+    return out
+
+
+def spectral_convergence(y: torch.Tensor, target: torch.Tensor,
+                         audio) -> float:
+    """Mean over the rows of || |STFT(y)| - S ||  / ||S|| for Griffin-Lim's
+    output ``y`` [B, samples] and its target magnitudes ``S`` [B, T, F]:
+    what Griffin-Lim minimizes.  Unlike the waveform, which 60 bf16
+    iterations make chaotic on a floor-level decode, it is not."""
+    from tacotron_tpu_torch.dsp import chip as dsp_chip
+
+    mag = torch.abs(dsp_chip.stft(y, audio))
+    return float((torch.linalg.vector_norm(mag - target, dim=(1, 2))
+                  / torch.linalg.vector_norm(target, dim=(1, 2))).mean())
+
+
+def long_vocoder(dev) -> dict:
+    """The long decodes' vocoder (phase 4 (d)): a replayed two-chunk,
+    200-step ``synthesize`` of 32 texts with the classic vocoder (16 x 800
+    = 12,800 rows a chunk) through the spectral-step engine.  Its capture
+    (warm-up and capture of the one chunk program) launches K3 60 and K2 61
+    times a run; the capture itself proves that K3 and K2 make no
+    synchronizing call; a replay allocates nothing; a traced replayed call
+    launches K3 120 and K2 122 times, reports ``chunks_k3`` 2 and its
+    ``synth.replay`` spans carry ``engine``; it equals the eager call, and
+    the route's waveforms on the same decode within the int16 wire's step.
+    On that decode the route's spectral convergence lies within
+    :data:`CONVERGENCE_SLACK` of matmul_half's (the float32 ``"fft"``
+    engine's beside them).  K3 holds to its plain version on the rows the
+    route hands it there (:func:`check_k3_decode`) and on random rows, at
+    one chunk (12,800 rows) and at call (b)'s two utterances (1,600)."""
+    import dataclasses
+
+    from tacotron_tpu_torch.config import Config
+    from tacotron_tpu_torch.dsp import chip as dsp_chip
+    from tacotron_tpu_torch.synth import Synthesizer
+    from tacotron_tpu_torch.utils import trace as ptrace
+
+    cfg = Config()
+    synth = Synthesizer(device=dev).init_random(cfg, seed=17)
+    texts = [KOREAN[i % len(KOREAN)] for i in range(32)]
+    kw = dict(texts=texts, max_steps=200, attention_trim=False,
+              librosa_trim=False)
+    frames = 200 * cfg.model.reduction_factor
+    iters = cfg.audio.griffin_lim_iters
+    require(dsp_chip.resolve_engine(cfg.audio, frames, dev)
+            == "pallas_half",
+            f"{frames} frames do not reach the spectral-step engine")
+    per_run = {"K1": 0, "K2": iters + 1, "K3": iters}
+    linear = []
+    hook = synth.model.register_forward_hook(
+        lambda m, a, o: linear.append(o["linear_outputs"].clone()))
+    try:
+        zero_counts()
+        eager = synth.synthesize(**kw)
+        torch.cuda.synchronize()
+        eager_counts = read_counts()
+    finally:
+        hook.remove()
+    require(eager_counts == {k: 2 * v for k, v in per_run.items()},
+            f"(d) the eager call launched {eager_counts}, not twice "
+            f"{per_run}")
+    zero_counts()
+    synth.prewarm(**synth.prewarm_args(texts, max_steps=200,
+                                       attention_trim=False))
+    captured = read_counts()
+    require(captured == {k: 2 * v for k, v in per_run.items()},
+            f"(d) the capture launched {captured}, not {per_run} in its "
+            f"warm-up and again in its capture")
+    (graph,) = synth._graphs.values()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.cuda.memory_stats()["allocation.all.allocated"] == allocs,
+            "(d) a replay allocated memory")
+    first = len(ptrace.records("synth.replay"))
+    res, summary = traced(lambda: synth.synthesize(collect_timings=True,
+                                                   **kw))
+    replays = ptrace.records("synth.replay")[first:]
+    counts = trace_counts(summary)
+    require(counts == {k: 2 * v for k, v in per_run.items()},
+            f"(d) the replayed call launched {counts} in its trace")
+    t = res["timings"]
+    require(t["chunks"] == t["chunks_replayed"] == t["chunks_k3"] == 2
+            and [r.attrs.get("engine") for r in replays]
+            == ["pallas_half"] * 2,
+            f"(d) timings {t}, replay spans "
+            f"{[r.attrs for r in replays]}")
+    require(all(np.array_equal(a, b)
+                for a, b in zip(res["wavs"], eager["wavs"])),
+            "(d) the replay differs from the eager call")
+    got = torch.from_numpy(np.stack(res["wavs"])).to(dev)
+    spec = torch.cat(linear)[:len(texts)]
+    chunks = [spec[i:i + 16] for i in range(0, len(texts), 16)]
+    ns = (frames - 1) * cfg.audio.hop_length
+    target = dsp_chip.db_to_amp(dsp_chip.denormalize_db(spec, cfg.audio)
+                                + cfg.audio.ref_level_db) ** cfg.audio.power
+    sc = {}
+    with torch.inference_mode():
+        want = torch.cat([dsp_chip.batched_linear_to_waveform(c, cfg.audio)
+                          for c in chunks])
+        for impl, engine in (("auto", "pallas_half"),
+                             ("matmul_half", "matmul_half"), ("fft", "fft")):
+            audio = dataclasses.replace(cfg.audio, griffin_lim_impl=impl)
+            y = torch.cat([dsp_chip.griffin_lim_batched(t, ns, audio)
+                           for t in target.split(16)])
+            sc[engine] = spectral_convergence(y, target, cfg.audio)
+        # K3 on the rows the route hands it: the start's frames and the
+        # last iteration's, one chunk and call (b)'s two utterances
+        k3 = {}
+        for nb in (16, 2):
+            for done in (0, iters - 1):
+                k3[f"{nb * frames} rows, iteration {done + 1}"] = \
+                    check_k3_decode(cfg.audio, target[:nb], done)
+            k3[f"{nb * frames} rows, random"] = check_k3_at(
+                dev, np.random.default_rng(nb), cfg.audio.n_fft,
+                nb * frames)
+    # the wire's step: a row's peak (at least 0.01) over 32767, and its
+    # peak's dB carried in hundredths (1.2e-3 of the peak at most)
+    peak = want.abs().amax(1)
+    step = torch.clamp(peak, min=0.01) / 32767.0
+    wire = (got - want).abs().amax(1)
+    require(want.shape == got.shape and bool(
+        (wire <= step + 1.2e-3 * peak).all()),
+        f"(d) the call's waveforms lie {float((wire / step).max()):.2f} "
+        f"wire steps from the route's on the same decode")
+    require(sc["pallas_half"] <= CONVERGENCE_SLACK * sc["matmul_half"],
+            f"(d) spectral convergence {sc}: the spectral-step engine's "
+            f"waveforms match their magnitudes less well than "
+            f"matmul_half's")
+    log(f"[main] (d) 32 texts x 200 steps, classic vocoder, two chunks of "
+        f"16 x {frames} frames: capture launches {captured}, replayed call "
+        f"{counts} in its trace, no allocation in a replay, replay equal to "
+        f"the eager call; vocoder {t['vocoder_device_ms']:.3f} ms and "
+        f"decode {t['decode_device_ms']:.3f} ms of device time; the call "
+        f"within {float((wire / step).max()):.2f} wire steps of the route "
+        f"on its decode; spectral convergence "
+        f"{', '.join(f'{e} {v:.4f}' for e, v in sc.items())}; K3 against "
+        f"its plain version (rel) "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in k3.items())}")
+    return dict(launches=counts, capture_launches=captured,
+                spectral_convergence=sc, k3_rel=k3,
+                vocoder_ms=t["vocoder_device_ms"],
+                decode_ms=t["decode_device_ms"])
+
+
+def check_k3_decode(audio, magnitude: torch.Tensor, done: int) -> float:
+    """K3 against its plain version on the rows the route hands it when
+    Griffin-Lim has run ``done`` iterations on ``magnitude`` [B, T, F]:
+    the frames of that waveform and the magnitudes, B * T rows; the max
+    error over the output's peak, at most 2e-3 (as in :func:`check_k3`)."""
+    import dataclasses
+
+    from tacotron_tpu_torch.dsp import chip as dsp_chip
+    from tacotron_tpu_torch.ops.kernels import griffin_lim
+
+    B, T, F = magnitude.shape
+    y = dsp_chip.griffin_lim_batched(
+        magnitude, (T - 1) * audio.hop_length,
+        dataclasses.replace(audio, griffin_lim_iters=done))
+    frames = dsp_chip.frame_signal(y, audio).reshape(B * T, audio.n_fft)
+    mag = magnitude.reshape(B * T, F).contiguous()
+    rel = rel_err(griffin_lim.spectral_step(frames, mag, audio.n_fft),
+                  griffin_lim.spectral_step_reference(frames, mag,
+                                                      audio.n_fft))[1]
+    require(rel <= 2e-3, f"K3 at {B * T} rows of a decode after {done} "
+                         f"iterations: rel {rel}")
+    return rel
 
 
 def capture_bigru_inputs(dev, synth) -> dict:
@@ -2383,6 +2607,33 @@ REPORT_KEYS = {
 K1_PER_ITERATION = 4
 
 
+def engine_launches(audio, frames: int, iters: int, chunks: int) -> dict:
+    """The K1/K2/K3 launches of ``chunks`` vocoder chunks of ``frames``
+    frames on the card, by the engine ``resolve_engine`` gives them: K1
+    K1_PER_ITERATION times an iteration on the fused engine; else K2 once
+    an iteration and once for the start, with K3 once an iteration on a
+    spectral-step engine ("pallas", or "pallas_half", the route past the
+    fused engine's frame cap)."""
+    from tacotron_tpu_torch.dsp.chip import (SPECTRAL_STEP_ENGINES,
+                                             resolve_engine)
+
+    engine = resolve_engine(audio, frames, "cuda")
+    if engine == "fused":
+        return {"K1": K1_PER_ITERATION * iters * chunks, "K2": 0, "K3": 0}
+    return {"K1": 0, "K2": (iters + 1) * chunks,
+            "K3": iters * chunks if engine in SPECTRAL_STEP_ENGINES else 0}
+
+
+def check_kernel_at(dev, rng, audio, kernel: str, nb: int,
+                    frames: int) -> float:
+    """``kernel`` (K1, K2 or K3) against its plain version at a chunk of
+    ``nb`` utterances x ``frames`` frames."""
+    if kernel == "K3":
+        return check_k3_at(dev, rng, audio.n_fft, nb * frames)
+    return (check_k1_at if kernel == "K1" else check_k2_at)(
+        dev, rng, audio, nb, frames)
+
+
 def twin(sentence: str) -> str:
     """The fifth sentence's twin in the script: one syllable apart."""
     return (sentence[:TWIN_AT] + chr(ord(sentence[TWIN_AT]) + 1)
@@ -2478,7 +2729,6 @@ def corpus_phase(dev, tmp: str) -> dict:
     from tacotron_tpu_torch.data.builder import (build_from_path,
                                                  read_metadata,
                                                  resolve_loss_coeffs)
-    from tacotron_tpu_torch.ops.kernels.gl_fused import fused_supported
     from tacotron_tpu_torch.synth import Synthesizer
     from tacotron_tpu_torch.text import text_to_sequence
     from tacotron_tpu_torch.text.eval_sentences import EVAL_TEXTS
@@ -2650,7 +2900,7 @@ def corpus_phase(dev, tmp: str) -> dict:
         f"{'skipped and logged' if skipped_png else 'written'})")
 
     # (e) the speaker eval on the card: 50 steps (K1), then the default
-    # budget on two long texts (K2 where fused_supported rejects it)
+    # budget on two long texts (K3 and K2 past the fused engine's cap)
     synth = Synthesizer(device=dev).load(run)
     r = synth.config.model.reduction_factor
     iters = synth.FAST_GRIFFIN_LIM_ITERS
@@ -2685,10 +2935,9 @@ def corpus_phase(dev, tmp: str) -> dict:
                 for t in kw["texts"]]
         steps = synth._budget([len(s) for s in seqs], kw["max_steps"],
                               32)[1]
-        fused = fused_supported(synth.config.audio, steps * r)
-        chunks = len(synth._chunks(n))
-        want = {"K1": K1_PER_ITERATION * iters * chunks if fused else 0,
-                "K2": 0 if fused else (iters + 1) * chunks, "K3": 0}
+        want = engine_launches(synth.config.audio, steps * r, iters,
+                               len(synth._chunks(n)))
+        fused = want["K1"] > 0
         require(counts == want, f"(e) {name}: launches {counts}, derived "
                                 f"{want} ({steps} steps, fused {fused})")
         check_waveforms(res, synth.config.audio.hop_length, f"(e) {name}")
@@ -2815,7 +3064,8 @@ def bf16_forward(dev, main: dict, dirs) -> dict:
 
 def bf16_serving(dev, main: dict, graphs: dict) -> dict:
     """(b) Phase 4's rungs (a) and (b) in bf16 with phase 4's weights:
-    eagerly (the wrappers' counters: K1 120 on (a), K2 61 on (b)), then
+    eagerly (the wrappers' counters: K1 120 on (a), K3 60 and K2 61 on
+    (b)), then
     each key prewarmed and replayed (bit-equal to eager, the same launches
     in the replay's trace), with walls and the traced device busy time and
     idle share beside phase 4's and 8's float32 figures."""
@@ -2825,7 +3075,7 @@ def bf16_serving(dev, main: dict, graphs: dict) -> dict:
     synth = Synthesizer(device=dev).init_random(cfg_bf, seed=0)
     hop = cfg_bf.audio.hop_length
     expect = {"a": {"K1": 120, "K2": 0, "K3": 0},
-              "b": {"K1": 0, "K2": 61, "K3": 0}}
+              "b": {"K1": 0, "K2": 61, "K3": 60}}
     out = {}
     for name in ("a", "b"):
         kw = dict(main["calls"][name][1], librosa_trim=False)
@@ -3203,11 +3453,10 @@ def study_report(art: str) -> dict:
 
 def study_launches(dev, run: str, heldout, rng) -> dict:
     """(b) The study's held-out evaluation in this process on the run the
-    CLI trained, each ``synthesize`` call's K1/K2 launches held to the
-    counts its iterations, ``_budget`` and ``fused_supported`` give, and
+    CLI trained, each ``synthesize`` call's K1/K2/K3 launches held to the
+    counts its iterations, ``_budget`` and ``resolve_engine`` give, and
     the kernel that ran against its plain version at each chunk's
     shape."""
-    from tacotron_tpu_torch.ops.kernels.gl_fused import fused_supported
     from tacotron_tpu_torch.studies.convergence_study import evaluate
     from tacotron_tpu_torch.synth import Synthesizer
     from tacotron_tpu_torch.synth.synthesizer import trim_silence_db
@@ -3244,10 +3493,9 @@ def study_launches(dev, run: str, heldout, rng) -> dict:
         fast = kw.get("fast_vocoder", False)
         iters = synth.FAST_GRIFFIN_LIM_ITERS if fast else \
             audio.griffin_lim_iters
-        fused = fused_supported(audio, steps * r)
         chunks = synth._chunks(len(kw["texts"]))
-        want = {"K1": K1_PER_ITERATION * iters * len(chunks) if fused else 0,
-                "K2": 0 if fused else (iters + 1) * len(chunks), "K3": 0}
+        want = engine_launches(audio, steps * r, iters, len(chunks))
+        fused = want["K1"] > 0
         require(counts == want, f"(b) evaluation call ({len(seqs)} texts, "
                 f"fast {fast}): launches {counts}, derived {want} ({steps} "
                 f"steps, fused {fused})")
@@ -3512,10 +3760,8 @@ def load_launches(synth, calls: list, max_steps=None,
     """(K1/K2/K3 launches, {(kernel, padded batch, frames)}) that the
     recorded ``synthesize`` calls (their texts) must make at ``max_steps``
     (None: the adaptive budget): each chunk runs the vocoder's iterations
-    (the fast vocoder's, or the config's) through K1 where
-    ``fused_supported`` takes its frames, else through matmul_half and K2
-    (one more for the start)."""
-    from tacotron_tpu_torch.ops.kernels.gl_fused import fused_supported
+    (the fast vocoder's, or the config's) through the kernels
+    :func:`engine_launches` gives."""
     from tacotron_tpu_torch.text import text_to_sequence
 
     audio, r = synth.config.audio, synth.config.model.reduction_factor
@@ -3528,13 +3774,11 @@ def load_launches(synth, calls: list, max_steps=None,
                 for t in texts]
         steps = synth._budget([len(q) for q in seqs], max_steps, 32)[1]
         chunks = synth._chunks(len(texts))
-        fused = fused_supported(audio, steps * r)
-        if fused:
-            want["K1"] += K1_PER_ITERATION * iters * len(chunks)
-        else:
-            want["K2"] += (iters + 1) * len(chunks)
-        shapes |= {("K1" if fused else "K2", nb, steps * r)
-                   for _, _, nb in chunks}
+        got = engine_launches(audio, steps * r, iters, len(chunks))
+        for k, v in got.items():
+            want[k] += v
+        shapes |= {(k, nb, steps * r) for _, _, nb in chunks
+                   for k, v in got.items() if v}
     return want, shapes
 
 
@@ -3542,7 +3786,7 @@ def load_launches(synth, calls: list, max_steps=None,
 #: and replay counts
 LOAD_ROW_KEYS = {"concurrency", "requests", "p50_ms", "p95_ms", "mean_ms",
                  "throughput_rps", "batched_calls", "max_batch",
-                 "k1_launches", "k2_launches", "replays"}
+                 "k1_launches", "k2_launches", "k3_launches", "replays"}
 
 
 def sweep_study(dev, rng) -> dict:
@@ -3795,12 +4039,13 @@ def bench_phase(dev) -> dict:
     def kernels(calls_, max_steps, fast):
         want, at = load_launches(synth, calls_, max_steps, fast)
         shapes.update(at)
-        return {"K1": want["K1"], "K2": want["K2"]}
+        return want
 
     derived = {
-        "raw": {"K1": K1_PER_ITERATION * audio.griffin_lim_iters, "K2": 0},
+        "raw": {"K1": K1_PER_ITERATION * audio.griffin_lim_iters, "K2": 0,
+                "K3": 0},
         "fast_gla": {"K1": K1_PER_ITERATION * synth.FAST_GRIFFIN_LIM_ITERS,
-                     "K2": 0},
+                     "K2": 0, "K3": 0},
         "serving": kernels([texts], 50, False),
         "serving_fast": kernels([texts], 50, True),
         "serving_mulaw8": kernels([texts], 50, True),
@@ -3823,9 +4068,9 @@ def bench_phase(dev) -> dict:
     # calls and the first calls only
     want_total = {k: sum(v[k] * (BENCH_EAGER_CALLS if sec in
                                  BENCH_EAGER_ROWS else 1)
-                         for sec, v in derived.items()) for k in ("K1", "K2")}
-    require({k: counted[k] for k in want_total} == want_total
-            and counted["K3"] == 0,
+                         for sec, v in derived.items())
+                  for k in ("K1", "K2", "K3")}
+    require(counted == want_total,
             f"launches over the run {counted} (and {in_captures} in the "
             f"captures), derived {want_total}")
 
@@ -3844,7 +4089,8 @@ def bench_phase(dev) -> dict:
             == [(4, 1), (4, 4), (1, 1), (1, 4)], f"load rows {rows}")
     for row in rows:
         require(set(row) == LOAD_ROW_KEYS, f"load row keys {sorted(row)}")
-        require(row["k1_launches"] == row["k2_launches"] == 0
+        require(row["k1_launches"] == row["k2_launches"]
+                == row["k3_launches"] == 0
                 and 1 <= row["replays"] <= row["requests"],
                 f"load row {row}: every call replays")
         if row["concurrency"] == 1 or row["max_batch"] == 1:
@@ -3856,8 +4102,7 @@ def bench_phase(dev) -> dict:
             f"calls")
     # each kernel against its plain version at every shape of the run
     errs = {f"{k} B={nb} T={frames}":
-            (check_k1_at if k == "K1" else check_k2_at)(
-                dev, rng, audio, nb, frames)
+            check_kernel_at(dev, rng, audio, k, nb, frames)
             for k, nb, frames in sorted(shapes)}
     return dict(record=record, headline=headline, counted=counted,
                 in_captures=in_captures, load_trace=load["trace"],

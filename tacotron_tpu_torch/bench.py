@@ -56,6 +56,7 @@ import torch
 from .config import Config
 from .dsp import host as dsp_host
 from .ops.kernels.gl_fused import gl_iteration, iteration_flops
+from .ops.kernels.griffin_lim import spectral_step
 from .ops.kernels.ola import overlap_add_batched
 from .studies import serving_load, synth_sweep
 from .synth import Synthesizer
@@ -165,11 +166,13 @@ class _Harness:
         return out
 
     def counted(self, name: str, fn: Callable):
-        """``fn()``, its K1 and K2 launches recorded under ``name``."""
+        """``fn()``, its K1, K2 and K3 launches recorded under ``name``."""
         k1, k2 = gl_iteration.launches, overlap_add_batched.launches
+        k3 = spectral_step.launches
         out = fn()
         self.launches[name] = {"K1": gl_iteration.launches - k1,
-                               "K2": overlap_add_batched.launches - k2}
+                               "K2": overlap_add_batched.launches - k2,
+                               "K3": spectral_step.launches - k3}
         return out
 
 
@@ -558,8 +561,8 @@ def run(synth, cfg: Config, *, batch: int = 32, train_batch: int = 16,
         "serving_default_1utt_samples": int(sv["default_samples"]),
         "serving_default_note": "max_steps omitted (the server's default): "
                                 "the length-adaptive decode budget (200 "
-                                "steps for these texts: the matmul_half "
-                                "engine and the overlap-add kernel) and "
+                                "steps for these texts: the spectral-step "
+                                "and overlap-add kernels) and "
                                 "the attention and dB trims. With random "
                                 "weights the trims cut most of the audio, "
                                 "so latency is the number to read",
@@ -586,7 +589,7 @@ def run(synth, cfg: Config, *, batch: int = 32, train_batch: int = 16,
             "closed-loop clients (unique short texts, one token bucket, "
             "prewarmed: each call replays). max_batch=4 rows batch "
             "requests dynamically; max_batch=1 rows are the serial A/B. "
-            "batched_calls counts coalesced groups; k1/k2_launches count "
+            "batched_calls counts coalesced groups; k1/k2/k3_launches count "
             "eager calls only (a replay launches without the wrappers)",
         "fast_gla_audio_s_per_s": audio_seconds / fast_s,
         "fast_gla_batch_seconds": fast_s,
@@ -704,8 +707,9 @@ def run(synth, cfg: Config, *, batch: int = 32, train_batch: int = 16,
                                 "difference over the eager peak",
         "prewarm_s": h.prewarm_s,
         "launches": h.launches,
-        "launches_note": "K1 (gl_iteration) and K2 (overlap_add_batched) "
-                         "launches of each section's first call, made "
+        "launches_note": "K1 (gl_iteration), K2 (overlap_add_batched) and "
+                         "K3 (spectral_step) launches of each section's "
+                         "first call, made "
                          "eagerly before its programs are captured",
     }
     detail["wall_s"] = time.perf_counter() - t_start

@@ -30,7 +30,8 @@ class AudioConfig:
     griffin_lim_iters: int = 60
     power: float = 1.5  # magnitude exponent applied before Griffin-Lim
     # Griffin-Lim engine: "auto" resolves to "fused" (the hand-written
-    # iteration kernel, ops/kernels/gl_fused.py) on CUDA and to
+    # iteration kernel, ops/kernels/gl_fused.py) on CUDA, to the
+    # spectral-step kernel past its frame cap there (dsp/chip.py), and to
     # "matmul_half" on the CPU.  Explicit engines: "fused", "matmul_half"
     # (u/v half-frame DFT as bf16 matmuls), "matmul_bf16" (the dense DFT
     # pair as bf16 matmuls), "matmul_split" (the two-stage DFT as bf16

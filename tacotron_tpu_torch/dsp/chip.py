@@ -24,9 +24,21 @@ Engines (``AudioConfig.griffin_lim_impl``):
 
 ``"auto"`` resolves to ``"fused"`` on CUDA and ``"matmul_half"`` on the CPU,
 where the JAX package resolves to its Pallas kernels on the TPU and to
-``"matmul_half"`` on the CPU.  ``"fused"`` routes decodes longer than
-:func:`~tacotron_tpu_torch.ops.kernels.gl_fused.max_fused_frames` to
-``"matmul_half"``, and ``"matmul_half"`` routes an ``n_fft`` that is not a
+``"matmul_half"`` on the CPU.  ``"fused"`` takes the decodes that
+:func:`~tacotron_tpu_torch.ops.kernels.gl_fused.fused_supported` accepts (up
+to :func:`~tacotron_tpu_torch.ops.kernels.gl_fused.max_fused_frames`, the
+JAX kernel's routing cap), and routes longer ones to ``"matmul_half"``, as
+in JAX, whose forward products run on the TPU's matrix unit.  On CUDA those
+float32 products of bf16-rounded operands run on the SIMT units, so there
+the spectral-step engine takes matmul_half's place as ``"pallas_half"``, an
+engine no config names: the same center-sliced, reflect-padded iteration at
+the same operand precision (bf16 DFT operands, float32 sums, the projected
+spectrum rounded to bf16) as a dense DFT on the tensor cores, from
+matmul_half's zero-phase start.  (The
+dense start of JAX's ``"pallas"`` engine, kept where ``"pallas"`` is asked
+for, adds the same bf16 rounding pattern of IDFT_RE to every frame whose
+magnitudes are flat, such as the -100 dB floor, and Griffin-Lim then
+converges less far.)  ``"matmul_half"`` routes an ``n_fft`` that is not a
 multiple of 4 to ``"matmul_bf16"``, as in JAX.
 """
 
@@ -373,18 +385,25 @@ def _griffin_lim_split_batched(magnitude: torch.Tensor, num_samples: int,
 
 
 def _griffin_lim_pallas_batched(magnitude: torch.Tensor, num_samples: int,
-                                config) -> torch.Tensor:
+                                config, half_start: bool = False
+                                ) -> torch.Tensor:
     """The spectral step of ``ops/kernels/griffin_lim`` on the whole batch's
     frames folded into one [B * T, n_fft] row matrix per iteration, with
-    framing and the overlap-add around it."""
+    framing and the overlap-add around it.  The zero-phase start is JAX's
+    dense one, or with ``half_start`` matmul_half's."""
     B, T, _ = magnitude.shape
     n_fft = config.n_fft
-    _, _, idft_re, _ = spectral.dft_tensors(n_fft, magnitude.device)
     mag_rows = magnitude.reshape(B * T, -1).contiguous()
     ola = _ola_fn(config, num_samples, magnitude.device)
 
-    # zero-phase start: irfft(mag) == mag @ IDFT_RE
-    frames0 = bf16_matmul_f32(mag_rows, idft_re)
+    if half_start:
+        mag_e, mag_o = mag_rows[:, 0::2], mag_rows[:, 1::2]
+        frames0 = dif_irfft(mag_e, torch.zeros_like(mag_e),
+                            mag_o, torch.zeros_like(mag_o), n_fft)
+    else:
+        # zero-phase start: irfft(mag) == mag @ IDFT_RE
+        _, _, idft_re, _ = spectral.dft_tensors(n_fft, magnitude.device)
+        frames0 = bf16_matmul_f32(mag_rows, idft_re)
     y = ola(frames0.reshape(B, T, n_fft))
 
     def gl_update(y):
@@ -421,6 +440,8 @@ def resolve_engine(config, n_frames: int, device) -> str:
     if impl == "fused":
         if gl_fused.fused_supported(config, n_frames):
             return "fused"
+        if torch.device(device).type == "cuda" and config.n_fft % 4 == 0:
+            return "pallas_half"   # in matmul_half's place (module docstring)
         impl = "matmul_half"
     if impl == "matmul_half" and config.n_fft % 4 != 0:
         impl = "matmul_bf16"
@@ -442,7 +463,13 @@ _ENGINES = {"fused": _griffin_lim_fused_batched,
             "matmul_bf16": _griffin_lim_matmul,
             "matmul_split": _griffin_lim_split_batched,
             "pallas": _griffin_lim_pallas_batched,
+            # the route past the fused engine's cap on CUDA; no config
+            # names it
+            "pallas_half": functools.partial(_griffin_lim_pallas_batched,
+                                             half_start=True),
             "fft": _griffin_lim_fft}
+#: the engines whose iteration is the spectral-step kernel (K3)
+SPECTRAL_STEP_ENGINES = frozenset({"pallas", "pallas_half"})
 
 
 def griffin_lim_batched(magnitude: torch.Tensor, num_samples: int,

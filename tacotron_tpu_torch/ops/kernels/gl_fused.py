@@ -42,10 +42,12 @@ LANE = 128
 
 # The JAX kernel keeps a whole item's iteration in the TPU's 16 MB scoped
 # vector memory and routes longer decodes to the matmul_half engine.  The
-# port keeps that routing (same formula, same constants) so each decode goes
-# to the same engine as in JAX.  It is not a limit of the CUDA kernels, but
-# lifting it would send long decodes to another engine than JAX does, so
-# their outputs would no longer match the reference: it stays.
+# port keeps the cap (same formula, same constants), so every decode that
+# JAX runs through its fused kernel runs through this one.  It is not a
+# limit of the CUDA kernels.  Past it, ``dsp/chip.py::resolve_engine`` sends
+# CUDA decodes to the spectral-step engine (``"pallas_half"``: the same
+# center-sliced iteration as matmul_half at the same operand precision, on
+# the tensor cores) and CPU decodes to matmul_half, as JAX does.
 ROUTING_BUDGET_BYTES = 14 * 1024 * 1024
 ROUTING_BYTES_PER_FRAME = 26_000
 

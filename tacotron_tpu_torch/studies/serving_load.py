@@ -11,11 +11,12 @@ the comparison isolates scheduling from shape churn.
 
 Besides the script's keys, each row holds the launches of the vocoder
 kernels that its level's eager calls made (``k1_launches``, the fused
-Griffin-Lim chain; ``k2_launches``, the overlap-add) and the graph replays
+Griffin-Lim chain; ``k2_launches``, the overlap-add; ``k3_launches``, the
+spectral step) and the graph replays
 of its level (``replays``: a replay launches its kernels without the
 wrappers, so their counts do not see it).  The load texts run 40-49 tokens,
 whose 200-step budget (800 frames) is past the fused engine's 383 frames:
-they vocode through ``matmul_half`` and the overlap-add kernel.
+they vocode through the spectral-step kernel and the overlap-add kernel.
 
 With ``--no_prewarm`` the calls run eagerly; by default the serving
 programs are captured first (``Synthesizer.prewarm`` on the 32- and
@@ -46,6 +47,7 @@ import numpy as np
 
 from ..config import Config
 from ..ops.kernels.gl_fused import gl_iteration
+from ..ops.kernels.griffin_lim import spectral_step
 from ..ops.kernels.ola import overlap_add_batched
 
 
@@ -94,6 +96,7 @@ def _drive_level(worker, port: int, level: int, total: int,
         t.start()
     bc0 = worker.batched_calls
     k1, k2 = gl_iteration.launches, overlap_add_batched.launches
+    k3 = spectral_step.launches
     replays0 = replay_count(worker.synth)
 
     def waker():
@@ -123,6 +126,7 @@ def _drive_level(worker, port: int, level: int, total: int,
         "max_batch": worker.max_batch,
         "k1_launches": gl_iteration.launches - k1,
         "k2_launches": overlap_add_batched.launches - k2,
+        "k3_launches": spectral_step.launches - k3,
         "replays": replay_count(worker.synth) - replays0,
     }
 

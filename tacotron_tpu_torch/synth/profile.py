@@ -5,10 +5,10 @@
 Builds the full-width Deep Voice 2 model (``Config()``, two speakers, random
 weights from ``--seed``) and, for the three serving rungs that route to the
 vocoder kernels (4 sentences x 50 steps with the fast vocoder: the fused
-Griffin-Lim chain; 2 sentences x 200 steps with the classic vocoder:
-matmul_half with the overlap-add kernel; 4 sentences x 50 steps with the fast
-vocoder and ``griffin_lim_impl="pallas"``: the spectral-step kernel with the
-overlap-add kernel), measures:
+Griffin-Lim chain; 2 sentences x 200 steps with the classic vocoder: past
+the fused engine's frame cap, the spectral-step kernel with the overlap-add
+kernel; 4 sentences x 50 steps with the fast vocoder and
+``griffin_lim_impl="pallas"``: the same kernels), measures:
 
 - the wall time of ``synthesize`` (host clock around a synchronized call),
   and of its two phases run alone: the greedy decode and the vocoder;
@@ -51,8 +51,8 @@ SENTENCES = ["안녕하세요. 만나서 반갑습니다.",
 
 RUNGS = [dict(name="50-step, fast vocoder (fused)", n=4, max_steps=50,
               fast_vocoder=True, engine="auto"),
-         dict(name="200-step, classic vocoder (matmul_half + OLA)", n=2,
-              max_steps=200, fast_vocoder=False, engine="auto"),
+         dict(name="200-step, classic vocoder (spectral step + OLA)",
+              n=2, max_steps=200, fast_vocoder=False, engine="auto"),
          dict(name="50-step, fast vocoder (pallas: spectral step + OLA)",
               n=4, max_steps=50, fast_vocoder=True, engine="pallas")]
 

@@ -364,7 +364,9 @@ def make_sharded_synthesis(config: Config, plan, max_steps: int):
     divide by the data axis.
 
     The engine rules are JAX's: ``griffin_lim_impl="auto"`` runs
-    ``"matmul_half"`` and ``ola_impl="auto"`` the plain overlap-add
+    ``"matmul_half"`` at every length (where a single card's
+    ``Synthesizer`` runs the spectral-step engine past the fused engine's
+    frame cap) and ``ola_impl="auto"`` the plain overlap-add
     (``"xla"``); ``"fused"`` raises; an explicit ``ola_impl="pallas"`` (the
     overlap-add kernel) or ``griffin_lim_impl="pallas"`` (the spectral-step
     kernel, with the overlap-add kernel) runs its kernel.  Without a
@@ -721,6 +723,9 @@ class Synthesizer:
         chunk's device work is done, and the bulk copy) and
         ``synth.unpack`` (unpack, trims, scaling).  A chunk without
         ``synth.copy_in`` and ``synth.replay`` ran eagerly: a capture miss.
+        ``synth.replay`` carries the chunk's Griffin-Lim engine
+        (``engine``, as :func:`~tacotron_tpu_torch.dsp.chip.resolve_engine`
+        names it).
 
         ``collect_timings=True`` (chip path) adds ``timings``, from those
         spans: the phases ``frontend_ms``, ``dispatch_ms`` (the device
@@ -729,8 +734,9 @@ class Synthesizer:
         copy), ``post_ms`` (``synth.unpack``) and ``total_ms``, which they
         sum to; ``copy_in_ms`` and ``replay_ms`` (summed over the chunks),
         ``decode_device_ms`` and ``vocoder_device_ms`` (the device's clock
-        stamps of each chunk, :meth:`_vocode_chunk`, summed), ``chunks``
-        and ``chunks_replayed``.
+        stamps of each chunk, :meth:`_vocode_chunk`, summed), ``chunks``,
+        ``chunks_replayed`` and ``chunks_k3`` (the chunks whose vocoder ran
+        a spectral-step engine, ``dsp_chip.SPECTRAL_STEP_ENGINES``).
         """
         if self.model is None:
             raise RuntimeError("call init_random() or load_variables() first")
@@ -823,6 +829,8 @@ class Synthesizer:
                 pending = []
                 chunks = self._chunks(N)
                 call.attrs["chunks"] = len(chunks)
+                # the fast vocoder changes no field the route reads
+                engine = dsp_chip.resolve_engine(cfg.audio, full_frames, dev)
                 for lo, hi, nb in chunks:
                     args = (padded(inputs, nb, 0, lo, hi),
                             padded(input_lengths, nb, 1, lo, hi),
@@ -845,7 +853,8 @@ class Synthesizer:
                         with self._graph_lock:
                             with trace.span("synth.copy_in") as copy_in:
                                 graphed.copy_in(*args)
-                            with trace.span("synth.replay") as replay:
+                            with trace.span("synth.replay",
+                                            engine=engine) as replay:
                                 out = tuple(t.clone()
                                             for t in graphed.replay())
                         copies.append(copy_in)
@@ -942,6 +951,8 @@ class Synthesizer:
                     (stamps[:, 2] - stamps[:, 1]).sum()) / 1e6,
                 "chunks": len(pending),
                 "chunks_replayed": len(replays),
+                "chunks_k3": (len(pending) if engine in
+                              dsp_chip.SPECTRAL_STEP_ENGINES else 0),
             }
         return result
 

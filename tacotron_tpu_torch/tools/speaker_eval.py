@@ -13,8 +13,8 @@ beyond the reference, which only writes wav/png dumps per speaker (its
 diagnostics reuse
 :func:`tacotron_tpu_torch.synth.synthesizer.attention_health`.  On the
 card the batched call runs the vocoder kernels: the fused Griffin-Lim
-iteration for decodes of up to 383 frames, the overlap-add of
-``matmul_half`` beyond.
+iteration for decodes of up to 383 frames, the spectral-step and
+overlap-add kernels beyond.
 
 CLI (on the card; ``--device cpu`` runs on the CPU)::
 

@@ -227,7 +227,8 @@ def test_record_numbers_are_finite(record):
         "raw", "fast_gla", "serving", "serving_fast", "serving_mulaw8",
         "serving_latency_1utt", "serving_default_1utt",
         "serving_default_batch", "long_text"}
-    assert all(v == {"K1": 0, "K2": 0} for v in detail["launches"].values())
+    assert all(v == {"K1": 0, "K2": 0, "K3": 0}
+               for v in detail["launches"].values())
     assert detail["training_live_prefetch_depth"] == 2
     assert detail["training_live_step_ms"] == detail[
         "training_pipelined_step_ms"]

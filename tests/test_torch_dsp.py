@@ -156,7 +156,19 @@ def test_engine_dispatch():
     assert tchip.resolve_engine(tcfg, 21, "cuda") == "fused"
     ref = TorchAudioConfig()
     assert tchip.resolve_engine(ref, 383, "cuda") == "fused"
-    assert tchip.resolve_engine(ref, 384, "cuda") == "matmul_half"
+    # past the fused engine's frame cap: the spectral-step engine on CUDA,
+    # matmul_half (JAX's route) on the CPU; an explicit engine keeps its own
+    # ("pallas_half": the spectral-step kernel from matmul_half's start)
+    for n_frames in (384, 800):
+        assert tchip.resolve_engine(ref, n_frames, "cuda") == "pallas_half"
+        assert tchip.resolve_engine(ref, n_frames, "cpu") == "matmul_half"
+        assert tchip.resolve_engine(dataclasses.replace(
+            ref, griffin_lim_impl="fused"), n_frames, "cuda") == "pallas_half"
+    assert tchip.resolve_engine(dataclasses.replace(
+        ref, griffin_lim_impl="matmul_half"), 800, "cuda") == "matmul_half"
+    # an n_fft that is not a multiple of 4 keeps the CPU's route on CUDA
+    odd = TorchAudioConfig(num_freq=128)
+    assert tchip.resolve_engine(odd, 800, "cuda") == "matmul_bf16"
     for impl in ("matmul_bf16", "matmul_split", "pallas"):
         assert tchip.resolve_engine(
             dataclasses.replace(ref, griffin_lim_impl=impl), 10,
@@ -168,6 +180,10 @@ def test_engine_dispatch():
     with pytest.raises(ValueError):
         tchip.resolve_engine(dataclasses.replace(ref, ola_impl="bogus"),
                              10, "cpu")
+    # the route is no config value
+    with pytest.raises(ValueError):
+        tchip.resolve_engine(dataclasses.replace(
+            ref, griffin_lim_impl="pallas_half"), 800, "cuda")
     with pytest.raises(ValueError):
         tchip.resolve_engine(dataclasses.replace(
             ref, griffin_lim_impl="fft", ola_impl="pallas"), 10, "cpu")

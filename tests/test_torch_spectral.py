@@ -137,6 +137,83 @@ def test_engine_matches_compiled_jax(engine, momentum):
     assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999
 
 
+@pytest.mark.parametrize("engine,half_start", [("matmul_half", False),
+                                               ("pallas", False),
+                                               ("pallas", True)])
+def test_long_decode_engines_track_fft(engine, half_start):
+    """The engines a decode past the fused engine's frame cap can run
+    (matmul_half on the CPU; on CUDA the spectral-step engine from
+    matmul_half's start, and as asked for explicitly from JAX's), each on
+    its CPU path at the reference geometry, batch 2 x 400 frames, eight
+    iterations: held to the strict float32 "fft" engine under the bound
+    the repo holds its bf16 engines to (``tests/test_dsp.py``: correlation
+    above 0.98, the waveform's scale within 5 %)."""
+    base = TorchAudioConfig(griffin_lim_iters=8)
+    B, T = 2, 400
+    assert not tchip.gl_fused.fused_supported(base, T)
+    mag = torch.from_numpy(np.random.default_rng(3).random(
+        (B, T, base.num_freq)).astype(np.float32))
+    ns = (T - 1) * base.hop_length
+    want = tchip.griffin_lim_batched(
+        mag, ns, dataclasses.replace(base, griffin_lim_impl="fft")).numpy()
+    cfg = dataclasses.replace(base, griffin_lim_impl=engine)
+    assert tchip.resolve_engine(cfg, T, "cpu") == engine
+    got = (tchip._ENGINES["pallas_half"] if half_start
+           else tchip.griffin_lim_batched)(mag, ns, cfg).numpy()
+    assert got.shape == want.shape == (B, ns)
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.98
+    assert 0.95 < got.std() / want.std() < 1.05
+
+
+def spectral_convergence(y, target, audio) -> float:
+    """Mean over the utterances of || |STFT(y)| - S || / ||S||."""
+    mag = torch.abs(tchip.stft(y, audio))
+    return float((torch.linalg.vector_norm(mag - target, dim=(1, 2))
+                  / torch.linalg.vector_norm(target, dim=(1, 2))).mean())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_route_keeps_matmul_half_convergence_on_floor_frames(seed):
+    """Past the fused engine's cap, "auto" on CUDA runs the spectral-step
+    engine from matmul_half's zero-phase start ("pallas_half").  Reached
+    through ``griffin_lim_batched`` with ``resolve_engine`` answering as on
+    CUDA, on the CPU paths: two utterances of 400 frames, half of each a
+    harmonic tone 80-90 dB under full scale and the rest the -100 dB floor
+    (flat rows), eight iterations.  The route's spectral convergence stays
+    within 5 % of matmul_half's (the engine it replaces there); from JAX's
+    dense start, which adds one rounding pattern to every flat row, the
+    same iteration misses that bound (by about 40 %)."""
+    audio = TorchAudioConfig(griffin_lim_iters=8)
+    B, T = 2, 400
+    ns = (T - 1) * audio.hop_length
+    rng = np.random.default_rng(seed)
+    t = np.arange(ns) / audio.sample_rate
+    wav = np.zeros((B, ns), np.float32)
+    for b in range(B):
+        f0 = rng.uniform(100, 220)
+        tone = sum(np.sin(2 * np.pi * k * f0 * t + 6 * rng.random()) / k
+                   for k in range(1, 30))
+        lo = rng.integers(0, ns // 2)
+        wav[b, lo:lo + ns // 2] = 0.3 * tone[lo:lo + ns // 2]
+    spec = 0.1 * tchip.spectrogram(torch.from_numpy(wav), audio)[:, :T]
+    assert float((spec.amax(-1) == 0).float().mean()) > 0.4
+    target = tchip.db_to_amp(tchip.denormalize_db(spec, audio)
+                             + audio.ref_level_db) ** audio.power
+
+    resolve = tchip.resolve_engine
+    with mock.patch.object(tchip, "resolve_engine",
+                           lambda cfg, n, device: resolve(cfg, n, "cuda")):
+        assert tchip.resolve_engine(audio, T, "cpu") == "pallas_half"
+        route = tchip.griffin_lim_batched(target, ns, audio)
+    sc = {"route": spectral_convergence(route, target, audio)}
+    for engine in ("matmul_half", "pallas"):
+        cfg = dataclasses.replace(audio, griffin_lim_impl=engine)
+        sc[engine] = spectral_convergence(
+            tchip.griffin_lim_batched(target, ns, cfg), target, audio)
+    assert sc["route"] <= 1.05 * sc["matmul_half"], sc
+    assert sc["pallas"] > 1.05 * sc["matmul_half"], sc
+
+
 def test_odd_n_fft_reaches_matmul_bf16():
     """n_fft = 254 (2 mod 4): matmul_half hands over to matmul_bf16 in both
     packages.  The zero-phase start agrees to 1e-6 of the peak.  After one

@@ -118,7 +118,7 @@ def test_serving_load_rows_match_the_script(monkeypatch):
         Synthesizer(device="cpu").init_random(_load_config(), seed=1), **kw)
     got = tload.run_load_test(
         Synthesizer(device="cpu").init_random(_load_config(), seed=1), **kw)
-    extra = {"k1_launches", "k2_launches", "replays"}
+    extra = {"k1_launches", "k2_launches", "k3_launches", "replays"}
     assert len(got["levels"]) == len(want["levels"]) == 4
     for g, w in zip(got["levels"], want["levels"]):
         assert set(w) == LOAD_ROW_KEYS and set(g) == LOAD_ROW_KEYS | extra
@@ -126,7 +126,8 @@ def test_serving_load_rows_match_the_script(monkeypatch):
             assert g[key] == w[key]
         assert g["p50_ms"] > 0 and g["throughput_rps"] > 0
         # eager calls on the CPU: the plain versions, no graph
-        assert g["k1_launches"] == g["k2_launches"] == g["replays"] == 0
+        assert (g["k1_launches"] == g["k2_launches"] == g["k3_launches"]
+                == g["replays"] == 0)
         if g["concurrency"] == 1 or g["max_batch"] == 1:
             assert g["batched_calls"] == w["batched_calls"] == 0
         else:   # four clients at once: the queue coalesces

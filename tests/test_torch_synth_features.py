@@ -365,7 +365,7 @@ def test_collect_timings(pair, manual):
     assert set(t) == {"frontend_ms", "dispatch_ms", "device_ms",
                       "fetch_ms", "post_ms", "total_ms", "copy_in_ms",
                       "replay_ms", "decode_device_ms", "vocoder_device_ms",
-                      "chunks", "chunks_replayed"}
+                      "chunks", "chunks_replayed", "chunks_k3"}
     assert all(v >= 0.0 for v in t.values())
     parts = (t["frontend_ms"] + t["dispatch_ms"] + t["device_ms"]
              + t["fetch_ms"] + t["post_ms"])
@@ -374,7 +374,7 @@ def test_collect_timings(pair, manual):
     # the CPU's stamps are the host clock around the chunk's two phases
     assert 0.0 < t["decode_device_ms"] + t["vocoder_device_ms"] \
         <= t["dispatch_ms"]
-    assert (t["chunks"], t["chunks_replayed"]) == (1, 0)
+    assert (t["chunks"], t["chunks_replayed"], t["chunks_k3"]) == (1, 0, 0)
     assert "timings" not in ts.synthesize(texts=TEXTS[:1], max_steps=2,
                                           vocode="none",
                                           collect_timings=True)

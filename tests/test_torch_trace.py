@@ -8,7 +8,8 @@ records with it, on the CPU:
   own parents, the consumer's gets with a wait child when the queue was
   empty;
 - ``synthesize`` records its phases under one unit id, a replayed chunk
-  with copy-in and replay spans and an eager one (a capture miss) without,
+  with copy-in and replay spans (the replay naming the chunk's engine) and
+  an eager one (a capture miss) without, ``chunks_k3`` by the engine,
   a capture is a ``graph.capture`` span, the train step's spans by route;
 - ``TraceWindow``'s idle-gap charging (``synth/profile.py::idle_by_span``)
   on synthetic device intervals and spans;
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 from tacotron_tpu_torch.config import Config as TorchConfig
+from tacotron_tpu_torch.dsp.chip import SPECTRAL_STEP_ENGINES, resolve_engine
 from tacotron_tpu_torch.synth import synthesizer as tsynth
 from tacotron_tpu_torch.synth.profile import idle_by_span
 from tacotron_tpu_torch.utils import graphs, trace
@@ -260,6 +262,30 @@ def test_synthesize_spans_and_chunk_routes(rec):
     assert (t["chunks"], t["chunks_replayed"]) == (1, 1)
     assert t["decode_device_ms"] > 0.0 and t["vocoder_device_ms"] > 0.0
     assert t["total_ms"] <= first.ms
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_replay_spans_name_the_engine_and_k3_chunks_count(rec, impl):
+    """Each ``synth.replay`` span carries its chunk's engine, and
+    ``chunks_k3`` counts the chunks (replayed or eager) whose engine is the
+    spectral-step engine; on the CPU "auto" resolves to matmul_half."""
+    cfg = TorchConfig.from_dict({"audio": dict(AUDIO, griffin_lim_impl=impl),
+                                 "model": MODEL})
+    ts = tsynth.Synthesizer(device="cpu").init_random(cfg, seed=2)
+    engine = resolve_engine(cfg.audio, 4 * cfg.model.reduction_factor,
+                            "cpu")
+    assert engine == {"auto": "matmul_half", "pallas": "pallas"}[impl]
+    kw = dict(speaker_ids=[0, 1, 1], max_steps=4, librosa_trim=False,
+              collect_timings=True)
+    ts.prewarm(**ts.prewarm_args(TEXTS, max_steps=4))
+    replayed = ts.synthesize(TEXTS, **kw)["timings"]
+    eager = ts.synthesize(TEXTS[:1], **kw)["timings"]
+    (replay,) = rec.records("synth.replay")
+    assert replay.attrs == {"engine": engine}
+    for t, replays in ((replayed, 1), (eager, 0)):
+        assert (t["chunks"], t["chunks_replayed"]) == (1, replays)
+        assert t["chunks_k3"] == (t["chunks"] if engine in
+                                  SPECTRAL_STEP_ENGINES else 0)
 
 
 def test_chunk_stamps_are_ordered():
