@@ -13,6 +13,10 @@ Offline and served synthesis, per utterance of the sample:
 - ``length_mismatch``: utterances whose alignment or waveform has another
   shape than the reference's (exact: limit 0).
 
+The model family (``families/<family>.py``, ``core.family``) gives the
+reference, the decode budget and any further per-utterance numbers
+(``SAMPLE_FIELDS``, ``field_gaps``); the vocoder and the wire are shared.
+
 The control (``CONTROL``) is the reference in the program's place one
 precision below what the configuration states: TF32 products in the model
 (float32 with TF32 off is stated) and float8 e4m3 operands in the
@@ -61,23 +65,26 @@ OFFLINE_CONTROLS = {"tf32_fp8": ("tf32", "fp8"),
                     "fp8_vocoder": ("float32", "fp8")}
 
 
-def reference_outputs(cfg: dict, variables, items: List[dict],
+def reference_outputs(family, cfg: dict, variables, items: List[dict],
                       call_texts: Dict[int, List[str]], iters: int,
                       momentum: float, device,
                       precision: tuple = ("float32", "bf16")):
-    """The reference's alignments and waveforms of ``items``, each decoded
-    in its call's token bucket and budget, at ``precision`` (the model's,
-    the vocoder's)."""
+    """The family's reference's alignments, waveforms and rows of its
+    ``SAMPLE_FIELDS`` for ``items``, each decoded in its call's token
+    bucket and the family's budget, at ``precision`` (the model's, the
+    vocoder's)."""
     m, audio = cfg["model"], cfg["audio"]
+    fields = getattr(family, "SAMPLE_FIELDS", ())
     groups: Dict[tuple, List[int]] = {}
     for i, item in enumerate(items):
         longest = max(len(text_to_ids(t)) for t in call_texts[item["call"]])
         bucket = -(-longest // TOKEN_BUCKET) * TOKEN_BUCKET
-        groups.setdefault((bucket, decode_budget(cfg, longest)),
+        groups.setdefault((bucket, family.decode_budget(cfg, longest)),
                           []).append(i)
-    ref = Reference(variables, m, precision[0])
+    ref = family.reference(variables, m, precision[0])
     aligns: List = [None] * len(items)
     wavs: List = [None] * len(items)
+    rows: List = [None] * len(items)
     for (bucket, steps), idx in groups.items():
         for lo in range(0, len(idx), 16):
             block = idx[lo:lo + 16]
@@ -99,8 +106,9 @@ def reference_outputs(cfg: dict, variables, items: List[dict],
             for row, i in enumerate(block):
                 aligns[i] = out["alignments"][row, :len(ids[row])].cpu()
                 wavs[i] = wav[row].cpu()
+                rows[i] = {f: out[f][row].cpu() for f in fields}
             del out, wav
-    return aligns, wavs
+    return aligns, wavs, rows
 
 
 def gaps(items: List[dict], aligns, wavs) -> Dict[str, float]:
@@ -124,26 +132,38 @@ def gaps(items: List[dict], aligns, wavs) -> Dict[str, float]:
             "length_mismatch": float(mismatch)}
 
 
-def offline_numbers(cell: Cell, seed: int, sample: List[dict], variables,
-                    device, control: bool = False):
-    """The numbers of the program's ``sample``; with ``control``, each
-    control's numbers by name instead."""
+def family_gaps(family, items: List[dict], aligns, wavs, rows
+                ) -> Dict[str, float]:
+    """:func:`gaps`, and the family's ``field_gaps`` where it names
+    ``SAMPLE_FIELDS``."""
+    out = gaps(items, aligns, wavs)
+    if getattr(family, "SAMPLE_FIELDS", ()):
+        out.update(family.field_gaps(items, rows))
+    return out
+
+
+def offline_numbers(cell: Cell, family, seed: int, sample: List[dict],
+                    variables, device, control: bool = False):
+    """The numbers of the program's ``sample`` against ``family``'s
+    reference; with ``control``, each control's numbers by name
+    instead."""
     cfg, mix = cell.config["config"], cell.traffic
     iters, momentum = generate.griffin_lim(mix, cfg["audio"])
     call_texts = {item["call"]: generate.texts(mix, seed, item["call"])
                   for item in sample}
-    ref = reference_outputs(cfg, variables, sample, call_texts, iters,
-                            momentum, device)
+    ref = reference_outputs(family, cfg, variables, sample, call_texts,
+                            iters, momentum, device)
     if not control:
-        return gaps(sample, *ref)
+        return family_gaps(family, sample, *ref)
     out = {}
     for name, precision in OFFLINE_CONTROLS.items():
-        c_aligns, c_wavs = reference_outputs(
-            cfg, variables, sample, call_texts, iters, momentum, device,
-            precision)
-        as_items = [{"alignment": a.numpy(), "wav": w.numpy()}
-                    for a, w in zip(c_aligns, c_wavs)]
-        out[name] = gaps(as_items, *ref)
+        c_aligns, c_wavs, c_rows = reference_outputs(
+            family, cfg, variables, sample, call_texts, iters, momentum,
+            device, precision)
+        as_items = [dict({k: v.numpy() for k, v in r.items()},
+                         alignment=a.numpy(), wav=w.numpy())
+                    for a, w, r in zip(c_aligns, c_wavs, c_rows)]
+        out[name] = family_gaps(family, as_items, *ref)
     return out
 
 

@@ -6,14 +6,18 @@ A cell (an entry of ``workloads`` in ``BENCHMARK.json``) names its
 configuration, whose file ``configs/<config>.json`` holds the
 configuration as it is run, and its traffic, a data file
 ``traffic/<traffic>.json`` whose ``kind`` picks the driver
-(``drivers/<kind>.py``).  ``limits/<workload>.json`` holds the limits of the
-numbers that decide ``correct``.  Each per-layer metric is read by
-``metrics/<metric>.py``.  Adding a cell, a configuration, a mix or a
-metric adds files and entries; no file here changes.
+(``drivers/<kind>.py``).  A configuration file's top-level ``family``
+(``tacotron`` where it names none) picks the model family
+(``families/<family>.py``): the variables, the reference, the decode
+budget and the FLOP count of the model.  ``limits/<workload>.json`` holds
+the limits of the numbers that decide ``correct``.  Each per-layer metric is
+read by ``metrics/<metric>.py``.  Adding a cell, a configuration, a model
+family, a mix or a metric adds files and entries; no file here changes.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -113,6 +117,31 @@ def load_module(path: Path):
 def metric_reader(name: str) -> Callable[["Run"], Optional[float]]:
     """``metrics/<name>.py``'s ``read``."""
     return load_module(HERE / "metrics" / f"{name}.py").read
+
+
+#: the model family of a configuration file that names none
+DEFAULT_FAMILY = "tacotron"
+
+
+def family(config: dict):
+    """The model family of a configuration file: ``families/<family>.py``
+    for its top-level ``family``, loaded once per process.  It gives
+    ``make_variables(model, seed, device)``, ``reference(variables, model,
+    precision)``, ``decode_budget(cfg, n_tokens)``,
+    ``frames_per_step(model)`` and ``forward_flops(model, batch, t_in,
+    t_out)``; optionally ``SAMPLE_FIELDS`` with ``field_gaps(items, rows)``
+    (``check.py``) and ``TRAIN_REFERENCE`` (``drivers/train.py``)."""
+    name = config.get("family", DEFAULT_FAMILY)
+    path = HERE / "families" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"perfbench: unknown model family {name!r}: no "
+                         f"module {path}")
+    return _family_module(path)
+
+
+@functools.lru_cache(maxsize=None)
+def _family_module(path: Path):
+    return load_module(path)
 
 
 def driver(kind: str):

@@ -1,14 +1,17 @@
 """A batch job: back-to-back ``Synthesizer.synthesize`` calls of
 ``texts_per_call`` texts each, the captured programs replayed.
 
-Set-up draws the weights from the seed, loads them into the program,
+Set-up looks up the model family of the cell's configuration
+(``core.family``), draws its weights from the seed, loads them into the
+program,
 captures the one program key the job's calls use (every call has the same
 token counts in another order, so one token bucket and one decode budget)
 and runs one untimed call.  The window then calls until ``--seconds`` have
 passed; ``audio_s_per_s`` is the audio of every completed call over the
 window's wall time.  A reservoir drawn from the seed keeps
 ``check_sample`` of the window's utterances, which the reference decodes
-and vocodes again once the window has closed.
+and vocodes again once the window has closed, with the family's further
+``SAMPLE_FIELDS`` of each.
 """
 
 from __future__ import annotations
@@ -21,19 +24,19 @@ import numpy as np
 import torch
 
 from .. import check
-from ..core import Cell, Run, process_start_time
-from ..reference.weights import make_variables
+from ..core import Cell, Run, family as model_family, process_start_time
 from ..trace import TraceWindow
 from ..traffic import generate
 
 
-def program(cell: Cell, seed: int, device):
-    """The program under test, loaded with the seed's weights; returns
-    (synthesizer, variables)."""
+def program(cell: Cell, family, seed: int, device):
+    """The program under test, loaded with the family's weights drawn from
+    the seed; returns (synthesizer, variables)."""
     from tacotron_tpu_torch.config import Config
     from tacotron_tpu_torch.synth import Synthesizer
     config = Config.from_dict(cell.config["config"])
-    variables = make_variables(cell.config["config"]["model"], seed, device)
+    variables = family.make_variables(cell.config["config"]["model"], seed,
+                                      device)
     synth = Synthesizer(device=device)
     synth.load_variables({k: v.cpu().numpy() for k, v in variables.items()},
                          config)
@@ -44,7 +47,9 @@ def run(cell: Cell, args, device) -> Run:
     mix = cell.traffic
     cfg = cell.config["config"]
     out = Run("offline", cell.config, mix)
-    synth, variables = program(cell, args.seed, device)
+    family = model_family(cell.config)
+    fields = getattr(family, "SAMPLE_FIELDS", ())
+    synth, variables = program(cell, family, args.seed, device)
     fast = mix["vocoder"] == "fast"
     kw = dict(attention_trim=mix["attention_trim"],
               librosa_trim=mix["librosa_trim"], fast_vocoder=fast)
@@ -94,6 +99,8 @@ def run(cell: Cell, args, device) -> Run:
                 item = {"call": index, "row": row, "text": texts[row],
                         "wav": res["wavs"][row],
                         "alignment": res["alignments"][row]}
+                for key in fields:
+                    item[key] = res[key][row]
                 if slot == len(sample):
                     sample.append(item)
                 else:
@@ -117,18 +124,18 @@ def run(cell: Cell, args, device) -> Run:
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    numbers = check.offline_numbers(cell, args.seed, sample, variables,
-                                    device)
+    numbers = check.offline_numbers(cell, family, args.seed, sample,
+                                    variables, device)
     out.numbers = numbers
     out.checks = check.judged(cell, numbers)
     if getattr(args, "control", False):
-        out.control = check.offline_numbers(cell, args.seed, sample,
+        out.control = check.offline_numbers(cell, family, args.seed, sample,
                                             variables, device, control=True)
     return out
 
 
-def least_call_seconds(cfg: dict, mix: dict, unit: dict) -> float:
-    """The least time of one call's work on the card: the model's forward
+def least_call_seconds(family, cfg: dict, mix: dict, unit: dict) -> float:
+    """The least time of one call's work on the card: the family's forward
     matrix products at the float32 peak plus the Griffin-Lim products at
     the bf16 peak (``synth.mfu_pct``)."""
     from .. import flops
@@ -136,8 +143,8 @@ def least_call_seconds(cfg: dict, mix: dict, unit: dict) -> float:
     lo, hi = mix["tokens"]
     counts = generate.token_counts(lo, hi, mix["texts_per_call"])
     t_in = -(-max(counts) // 32) * 32
-    t_out = unit["steps"] * m["reduction_factor"]
-    model = flops.forward_flops(m, unit["texts"], t_in, t_out)["total"]
+    t_out = unit["steps"] * family.frames_per_step(m)
+    model = family.forward_flops(m, unit["texts"], t_in, t_out)
     iters, _ = generate.griffin_lim(mix, audio)
     n_fft = (audio["num_freq"] - 1) * 2
     gl = flops.gl_iteration_flops(unit["texts"] * unit["frames"],

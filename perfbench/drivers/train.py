@@ -1,9 +1,12 @@
 """The live training loop: ``DataFeeder`` -> ``DevicePrefetcher`` -> the
 replayed ``TrainStep``, as the port's train driver runs it.
 
-Set-up writes the corpus once per checkout (``corpus_seed`` of the mix,
-under ``.perfbench_cache/``: a dataset on disk, as a training user has
-one), draws the weights from the run's seed, captures the step for every
+Set-up first looks up the configuration's model family and stops where
+it has no ``TRAIN_REFERENCE``: the comparison, ``check.train_numbers``,
+follows Tacotron's training step alone.  It then writes the corpus once
+per checkout (``corpus_seed`` of the mix, under ``.perfbench_cache/``: a
+dataset on disk, as a training user has one), draws the family's weights
+from the run's seed, captures the step for every
 bucket shape the feeder can reach, starts the feeder (seeded from the run's
 seed, its queue ``feeder_queue`` batches deep) and the prefetcher, and
 runs the first ``check_steps`` steps
@@ -31,8 +34,8 @@ from pathlib import Path
 import torch
 
 from .. import check
-from ..core import ROOT, Cell, Run, process_start_time
-from ..reference.weights import make_variables
+from ..core import DEFAULT_FAMILY, ROOT, Cell, Run, \
+    family as model_family, process_start_time
 from ..trace import TraceWindow
 from ..traffic import generate
 
@@ -72,6 +75,12 @@ def run(cell: Cell, args, device) -> Run:
 
     mix = cell.traffic
     cfg = cell.config["config"]
+    family = model_family(cell.config)
+    if not getattr(family, "TRAIN_REFERENCE", False):
+        raise SystemExit(
+            f"perfbench: model family "
+            f"{cell.config.get('family', DEFAULT_FAMILY)!r} has no training "
+            f"reference (check.train_numbers follows Tacotron's step)")
     config = Config.from_dict(cfg)
     out = Run("train", cell.config, mix)
     # the precision the port's train driver sets: float32 without TF32 in
@@ -82,7 +91,7 @@ def run(cell: Cell, args, device) -> Run:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     dirs = corpus_dirs(mix, cfg["model"])
-    variables = make_variables(cfg["model"], args.seed, device)
+    variables = family.make_variables(cfg["model"], args.seed, device)
     model = create_model(config)
     model.load_state_dict(from_flax({k: v.cpu().numpy()
                                      for k, v in variables.items()}))

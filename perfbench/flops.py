@@ -2,7 +2,8 @@
 matrix-product FLOPs (the port's ``train/roofline.py``), the fused
 Griffin-Lim iteration's operations and bytes (K1, the port's
 ``ops/kernels/gl_fused.py::iteration_flops`` and ``chip_smoke.py``'s byte
-count) and the overlap-add's bytes (K2, ``chip_smoke.py``).
+count), the spectral step's operations and bytes (K3, ``chip_smoke.py``)
+and the overlap-add's bytes (K2, ``chip_smoke.py``).
 
 Conventions: 1 multiply-add = 2 FLOPs; a training step's backward is twice
 its forward's matrix products; elementwise work is left out.
@@ -136,6 +137,30 @@ def k1_iteration_seconds(batch: int, n_frames: int, n_fft: int,
     operations at the bf16 peak and its bytes at the HBM peak."""
     return max(gl_iteration_flops(batch * n_frames, n_fft) / PEAK_BF16_FLOPS,
                k1_iteration_bytes(batch, n_frames, n_fft, hop) / PEAK_BYTES)
+
+
+def k3_iteration_flops(rows: int, n_fft: int) -> float:
+    """Matrix-product FLOPs of one spectral step (K3) over ``rows`` frames:
+    the two forward DFT products and the two inverses over the n_fft / 2 + 1
+    bins (the kernels' bin padding is not counted); 13.4 GFLOP at 800 x
+    2048."""
+    return 8.0 * rows * n_fft * (n_fft // 2 + 1)
+
+
+def k3_iteration_bytes(rows: int, n_fft: int) -> float:
+    """Bytes one spectral step must move at least: the frames and the
+    target magnitudes in, the four bf16 DFT matrices, the new frames
+    out."""
+    F = n_fft // 2 + 1
+    return (rows * n_fft * 4 + rows * F * 4 + 4 * n_fft * F * 2
+            + rows * n_fft * 4)
+
+
+def k3_iteration_seconds(rows: int, n_fft: int) -> float:
+    """The least time of one K3 step on the card: the larger of its
+    operations at the bf16 peak and its bytes at the HBM peak."""
+    return max(k3_iteration_flops(rows, n_fft) / PEAK_BF16_FLOPS,
+               k3_iteration_bytes(rows, n_fft) / PEAK_BYTES)
 
 
 def k2_call_bytes(batch: int, n_frames: int, n_fft: int, hop: int) -> float:

@@ -22,11 +22,12 @@ OWN_KERNELS = ("gl_frame_uv", "gl_dft_project", "gl_idft_window",
                "gl_spectral_dft", "gl_spectral_idft", "gru_input_proj",
                "gru_cluster", "gru_recurrent")
 
-#: the kernel groups of K1 (the fused Griffin-Lim iteration) and K2 (the
-#: overlap-add)
+#: the kernel groups of K1 (the fused Griffin-Lim iteration), K2 (the
+#: overlap-add) and K3 (the spectral step)
 K1_GROUPS = ("gl_frame_uv", "gl_dft_project", "gl_idft_window",
              "gl_ola_norm")
 K2_GROUPS = ("ola_centered",)
+K3_GROUPS = ("gl_spectral_dft", "gl_spectral_idft", "gl_spectral_cast")
 
 
 def kernel_group(name: str) -> str:
