@@ -39,7 +39,9 @@
    32 texts through the spectral-step engine, its launches at capture and
    in a trace of the replay, a replay that allocates nothing, and its
    spectral convergence against matmul_half's and the float32 ``"fft"``
-   engine's on the same decode; then matmul_half against the
+   engine's on the same decode, and K3 and K2 against their plain versions
+   at that call's shapes and at a Tacotron 2 chunk's (16 x 1000 frames);
+   then matmul_half against the
    spectral-step engine, replayed, at (batch, frames) (1, 384), (4, 600)
    and (16, 800) (:func:`time_gl_engines`, an ``[engines]`` line per shape
    naming the card).
@@ -824,6 +826,9 @@ ENGINE_SHAPES = ((1, 384), (4, 600), (16, 800))
 #: how much less consistent with its target magnitudes the spectral-step
 #: engine's waveform may be than matmul_half's (spectral convergence)
 CONVERGENCE_SLACK = 1.05
+#: the frames of a Tacotron 2 decode at max_decoder_steps (r = 1), whose
+#: chunks of 16 take K3 and K2 at 16,000 rows
+T2_FRAMES = 1000
 
 
 def time_gl_engines(dev) -> dict:
@@ -890,7 +895,9 @@ def long_vocoder(dev) -> dict:
     :data:`CONVERGENCE_SLACK` of matmul_half's (the float32 ``"fft"``
     engine's beside them).  K3 holds to its plain version on the rows the
     route hands it there (:func:`check_k3_decode`) and on random rows, at
-    one chunk (12,800 rows) and at call (b)'s two utterances (1,600)."""
+    one chunk (12,800 rows), at call (b)'s two utterances (1,600) and at
+    a Tacotron 2 chunk (16 x :data:`T2_FRAMES` = 16,000 rows), where K2
+    too holds to its plain version on random frames."""
     import dataclasses
 
     from tacotron_tpu_torch.config import Config
@@ -977,6 +984,12 @@ def long_vocoder(dev) -> dict:
             k3[f"{nb * frames} rows, random"] = check_k3_at(
                 dev, np.random.default_rng(nb), cfg.audio.n_fft,
                 nb * frames)
+        # the Tacotron 2 cell's chunk: 16 utterances of 1000 frames
+        t2_rows = 16 * T2_FRAMES
+        k3[f"{t2_rows} rows, random"] = check_k3_at(
+            dev, np.random.default_rng(t2_rows), cfg.audio.n_fft, t2_rows)
+        k2 = check_k2_at(dev, np.random.default_rng(T2_FRAMES), cfg.audio,
+                         16, T2_FRAMES)
     # the wire's step: a row's peak (at least 0.01) over 32767, and its
     # peak's dB carried in hundredths (1.2e-3 of the peak at most)
     peak = want.abs().amax(1)
@@ -999,9 +1012,10 @@ def long_vocoder(dev) -> dict:
         f"on its decode; spectral convergence "
         f"{', '.join(f'{e} {v:.4f}' for e, v in sc.items())}; K3 against "
         f"its plain version (rel) "
-        f"{', '.join(f'{k} {v:.3e}' for k, v in k3.items())}")
+        f"{', '.join(f'{k} {v:.3e}' for k, v in k3.items())}; K2 at 16 x "
+        f"{T2_FRAMES} frames (abs) {k2:.3e}")
     return dict(launches=counts, capture_launches=captured,
-                spectral_convergence=sc, k3_rel=k3,
+                spectral_convergence=sc, k3_rel=k3, k2_t2_abs=k2,
                 vocoder_ms=t["vocoder_device_ms"],
                 decode_ms=t["decode_device_ms"])
 
@@ -1861,11 +1875,12 @@ def replay_once(s, call, what: str, want: dict) -> None:
 
 
 def check_chunk_stamps(s, call, what: str) -> dict:
-    """The device clock stamps of a replayed call (``csrc/stamp.cu``, three
-    a chunk): the last replay's, read from its graph's static output, in
-    order and within the call's wall time; the call's decode and vocoder
-    device ms (``collect_timings``, from every chunk's stamps) positive and
-    together within it."""
+    """The device clock stamps of a replayed call (``csrc/stamp.cu``, five
+    a chunk: before the encoder, after it, after the decoder loop, after
+    the post-net, after the pack): the last replay's, read from its
+    graph's static output, in order and within the call's wall time; the
+    call's decode and vocoder device ms (``collect_timings``, from every
+    chunk's stamps) positive and together within it."""
     before = {k: g.replays for k, g in s._graphs.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1873,9 +1888,10 @@ def check_chunk_stamps(s, call, what: str) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     (key,) = [k for k, g in s._graphs.items() if g.replays > before[k]]
-    s0, s1, s2 = s._graphs[key].outputs[2].tolist()
-    require(0 < s0 <= s1 <= s2 and (s2 - s0) / 1e6 <= wall_ms,
-            f"{what}: the last chunk's stamps {[s0, s1, s2]} are out of "
+    stamps = s._graphs[key].outputs[2].tolist()
+    require(0 < stamps[0] and stamps == sorted(stamps)
+            and (stamps[-1] - stamps[0]) / 1e6 <= wall_ms,
+            f"{what}: the last chunk's stamps {stamps} are out of "
             f"order or span more than the call's {wall_ms:.3f} ms")
     t = res["timings"]
     decode, vocoder = t["decode_device_ms"], t["vocoder_device_ms"]
@@ -1885,8 +1901,9 @@ def check_chunk_stamps(s, call, what: str) -> dict:
             f"ms over {t['chunks_replayed']} of {t['chunks']} chunks "
             f"replayed, against a {wall_ms:.3f} ms call")
     return dict(chunks=t["chunks"], wall_ms=wall_ms, decode_ms=decode,
-                vocoder_ms=vocoder, last_chunk_ms=[(s1 - s0) / 1e6,
-                                                   (s2 - s1) / 1e6])
+                vocoder_ms=vocoder,
+                last_chunk_ms=[(stamps[3] - stamps[0]) / 1e6,
+                               (stamps[4] - stamps[3]) / 1e6])
 
 
 def serving_graphs(main: dict, tmp: str) -> dict:
@@ -4384,7 +4401,7 @@ def main() -> int:
             f"{k['max_abs_err']:.3e}, launches {k['launches']}{gemm}")
     st = graphs["stamps"]
     log(f"[kernel] stamp (csrc/stamp.cu, %globaltimer, no TPU counterpart):"
-        f" 3 a chunk, captured; phase 8 (b)'s replayed call of "
+        f" 5 a chunk, captured; phase 8 (b)'s replayed call of "
         f"{st['chunks']} chunks: the last chunk's stamps in order, decode "
         f"{st['last_chunk_ms'][0]:.3f} ms and vocoder "
         f"{st['last_chunk_ms'][1]:.3f} ms; the call's decode "

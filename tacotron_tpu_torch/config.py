@@ -4,7 +4,9 @@ Field names and defaults are identical to the JAX package's configuration, so
 a ``config.json`` written by a JAX run loads here unchanged (unknown keys are
 ignored in both directions).  Default values reproduce the hyperparameters in
 effect in the TensorFlow reference (``hparams.py``): sample rate 24 kHz,
-Deep Voice 2 widths, r=4.
+Deep Voice 2 widths, r=4.  ``ModelConfig.architecture`` chooses the model:
+``"tacotron"`` (the default; its JSON leaves out the field and the Tacotron
+2 fields, so it stays the JAX package's) or ``"tacotron2"``.
 """
 
 from __future__ import annotations
@@ -60,9 +62,25 @@ class AudioConfig:
         return int(self.frame_length_ms / 1000 * self.sample_rate)
 
 
+#: ``ModelConfig.architecture`` values: Tacotron (with Deep Voice 2's
+#: speakers) and Tacotron 2
+ARCHITECTURES = ("tacotron", "tacotron2")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Tacotron + Deep Voice 2 architecture."""
+    """Tacotron + Deep Voice 2 architecture, or Tacotron 2.
+
+    ``architecture="tacotron2"`` (Shen et al. 2018, arXiv:1712.05884 §2;
+    ``models/tacotron2.py``) reads ``embedding_size``, ``attention_size``,
+    ``dec_prenet_sizes``, ``reduction_factor``, ``max_iters``,
+    ``steps_per_token``, ``num_mels`` and ``num_freq`` as Tacotron does,
+    and the ``t2_*`` fields for what Tacotron lacks; it runs inference
+    only, single-speaker and in float32 (``__post_init__`` refuses the
+    rest)."""
+
+    # "tacotron" or "tacotron2" (ARCHITECTURES)
+    architecture: str = "tacotron"
 
     # "single", "deepvoice" or "simple" speaker conditioning
     model_type: str = "single"
@@ -117,6 +135,39 @@ class ModelConfig:
     # eager PyTorch has no use for them.
     decoder_unroll: int = 1
     rnn_unroll: int = 1
+
+    # Tacotron 2 only, at NVIDIA/tacotron2's hparams.py widths: the
+    # encoder's convolutions and its BiLSTM (units per direction); the
+    # attention and decoder LSTMs; the location features (filters over the
+    # previous and the cumulative alignment); the post-net; the stop gate's
+    # threshold on the sigmoid of its logit
+    t2_enc_conv_num: int = 3
+    t2_enc_conv_channels: int = 512
+    t2_enc_conv_width: int = 5
+    t2_enc_lstm_size: int = 256
+    t2_attention_lstm_size: int = 1024
+    t2_decoder_lstm_size: int = 1024
+    t2_location_filters: int = 32
+    t2_location_width: int = 31
+    t2_postnet_conv_num: int = 5
+    t2_postnet_channels: int = 512
+    t2_postnet_width: int = 5
+    t2_gate_threshold: float = 0.5
+
+    def __post_init__(self):
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(f"architecture {self.architecture!r} is not one "
+                             f"of {ARCHITECTURES}")
+        if self.architecture != "tacotron2":
+            return
+        if self.num_speakers > 1:
+            raise ValueError(
+                "architecture 'tacotron2' is single-speaker: the port has "
+                "no speaker conditioning for it (num_speakers must be 1)")
+        if self.compute_dtype != "float32":
+            raise ValueError(
+                "architecture 'tacotron2' computes in float32 only: its "
+                "reference and limits hold float32 with TF32 off")
 
     def scaled(self, factor: int) -> "ModelConfig":
         """Method form of :func:`scale_model_widths`:
@@ -195,9 +246,18 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
+    def as_dict(self) -> dict:
+        """The sections as nested dicts; a Tacotron model section leaves
+        out ``architecture`` and the ``t2_*`` fields, so a Tacotron
+        configuration's JSON is the JAX package's, field for field."""
+        out = dataclasses.asdict(self)
+        if self.model.architecture == "tacotron":
+            out["model"] = {k: v for k, v in out["model"].items()
+                            if k != "architecture" and not k.startswith("t2_")}
+        return out
+
     def to_json(self, indent: int = 2) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=indent,
-                          sort_keys=True)
+        return json.dumps(self.as_dict(), indent=indent, sort_keys=True)
 
     @classmethod
     def from_json(cls, text: str) -> "Config":
@@ -259,7 +319,7 @@ class Config:
     def debug_string(self) -> str:
         """Sorted hyperparameter dump, as the JAX config prints it."""
         flat = {f"{section}.{key}": value
-                for section, fields in dataclasses.asdict(self).items()
+                for section, fields in self.as_dict().items()
                 for key, value in fields.items()}
         return "Hyperparameters:\n" + "\n".join(
             f"    {k}: {flat[k]}" for k in sorted(flat))

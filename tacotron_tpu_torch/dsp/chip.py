@@ -596,16 +596,31 @@ def linear_to_waveform(spec: torch.Tensor, config) -> torch.Tensor:
     return batched_linear_to_waveform(spec[None], config)[0]
 
 
-def mel_to_waveform(mel: torch.Tensor, config) -> torch.Tensor:
-    """One normalized mel spectrogram [n_frames, n_mels] -> waveform
-    [(n_frames - 1) * hop], through the pseudo-inverse of the filterbank."""
-    num_samples = (mel.shape[0] - 1) * config.hop_length
+def _mel_to_magnitude(mel: torch.Tensor, config) -> torch.Tensor:
+    """Normalized mel spectrograms [..., n_mels] -> linear magnitudes
+    [..., n_freq]: denormalize, dB -> amplitude, then one float32 product
+    with the filterbank's pseudo-inverse, floored at 1e-10."""
     amp = db_to_amp(denormalize_db(mel, config))
     inv_basis_t = device_constant(
         ("inv_mel_t", config.sample_rate, config.n_fft, config.num_mels),
         lambda: np.ascontiguousarray(inv_mel_basis(
             config.sample_rate, config.n_fft, config.num_mels).T.astype(
                 np.float32)), mel.device)
-    S = torch.clamp(amp @ inv_basis_t, min=1e-10)
+    return torch.clamp(amp @ inv_basis_t, min=1e-10)
+
+
+def mel_to_linear(mel: torch.Tensor, config) -> torch.Tensor:
+    """Normalized mel spectrograms [..., n_mels] -> the normalized linear
+    spectrograms [..., n_freq] that :func:`batched_linear_to_waveform`
+    reads: the pseudo-inverse's magnitudes in dB less ``ref_level_db``,
+    normalized (Tacotron 2's mel frames, vocoded by Griffin-Lim)."""
+    return _linear(_mel_to_magnitude(mel, config), config)
+
+
+def mel_to_waveform(mel: torch.Tensor, config) -> torch.Tensor:
+    """One normalized mel spectrogram [n_frames, n_mels] -> waveform
+    [(n_frames - 1) * hop], through the pseudo-inverse of the filterbank."""
+    num_samples = (mel.shape[0] - 1) * config.hop_length
+    S = _mel_to_magnitude(mel, config)
     y = griffin_lim(S ** config.power, num_samples, config)
     return inv_preemphasis(y, config)

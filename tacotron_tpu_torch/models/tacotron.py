@@ -52,7 +52,7 @@ model refuses that combination.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -311,14 +311,18 @@ class Tacotron(nn.Module):
                 manual_alignments: Optional[torch.Tensor] = None,
                 is_manual: Optional[torch.Tensor] = None,
                 dropout_generator: Optional[torch.Generator] = None,
-                data_shard=None) -> Dict[str, torch.Tensor]:
+                data_shard=None,
+                mark: Optional[Callable[[int], None]] = None
+                ) -> Dict[str, torch.Tensor]:
         """Teacher-forced when ``mel_targets`` is given, greedy otherwise.
         Returns ``mel_outputs`` [N, T_out, M], ``linear_outputs``
         [N, T_out, F] and ``alignments`` [N, T_in, T_dec].
         ``dropout_generator`` feeds the prenets' dropout in training mode
         (the post-net has none); ``data_shard`` makes the training-mode
-        statistics and masks global over the data group.  The outputs are
-        float32 whatever the compute dtype."""
+        statistics and masks global over the data group.  ``mark(1)`` is
+        called after the encoder and ``mark(2)`` after the decoder loop
+        (the synthesizer's device stamps).  The outputs are float32
+        whatever the compute dtype."""
         dtype = self.compute_dtype
         cond = self.speaker_conditioning(speaker_id)
         if dtype == torch.float32:
@@ -332,16 +336,18 @@ class Tacotron(nn.Module):
         with copies:
             out = self._forward(inputs, input_lengths, cond, mel_targets,
                                 max_steps, manual_alignments, is_manual,
-                                dropout_generator, data_shard)
+                                dropout_generator, data_shard, mark)
         return {k: v.float() for k, v in out.items()}
 
     def _forward(self, inputs, input_lengths, cond, mel_targets, max_steps,
                  manual_alignments, is_manual, dropout_generator,
-                 data_shard) -> Dict[str, torch.Tensor]:
+                 data_shard, mark=None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         r = cfg.reduction_factor
         memory = self.encode(inputs, input_lengths, cond, dropout_generator,
                              data_shard)
+        if mark is not None:
+            mark(1)
 
         if mel_targets is not None:
             taken = mel_targets.to(memory.dtype)[:, r - 1::r, :]
@@ -355,6 +361,8 @@ class Tacotron(nn.Module):
         frames, align_history = self.run_decoder(
             memory, num_steps, decoder_inputs, cond, manual_alignments,
             is_manual, dropout_generator, data_shard)
+        if mark is not None:
+            mark(2)
         N = inputs.shape[0]
         mel_outputs = frames.reshape(N, num_steps * r, cfg.num_mels)
 

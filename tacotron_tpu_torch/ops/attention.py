@@ -11,6 +11,11 @@ Each module scores one decode step.  The one-time key projection of the
 encoder memory lives in the model, outside the decode loop.  No mechanism
 masks padded memory positions, as in the reference.
 
+Tacotron 2's location-sensitive attention (:class:`LocationSensitiveAttention`,
+Chorowski et al. 2015 as NVIDIA's Tacotron 2 has it) is the one mechanism
+whose state is more than the previous alignment: it also carries the
+cumulative alignment, and it masks padded memory positions.
+
 Each mechanism computes in its query's dtype with its parameters cast at
 use, as the JAX modules do, down to the monotonic recurrence's log-space
 cumulative product in bfloat16; its cumulative sums add in float32 and
@@ -24,6 +29,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .cast import Linear, cast
@@ -108,6 +114,51 @@ class LuongAttention(nn.Module):
         if self.scale:
             score = cast(self.attention_g, query.dtype) * score
         return torch.softmax(score, dim=-1)
+
+
+class _ConvKernel(nn.Module):
+    """A bias-free convolution's ``weight`` [out, in, width]."""
+
+    def __init__(self, out_channels: int, in_channels: int, width: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               width))
+
+
+class LocationSensitiveAttention(nn.Module):
+    """``v . tanh(W q + U f + keys)`` over the memory positions, padding
+    masked, then a softmax, where ``f`` are ``filters`` location features:
+    a width-``width`` convolution (zero-padded to the same length, no
+    bias) over the previous and the cumulative alignment.  Parameters as
+    NVIDIA's ``Attention``: ``query_layer`` [A, Q], ``location_conv``
+    [filters, 2, width], ``location_dense`` [A, filters] and ``v`` [1, A],
+    all without biases; the memory's ``memory_layer`` keys are made once a
+    decode, outside this module's step."""
+
+    def __init__(self, query_size: int, num_units: int, filters: int,
+                 width: int):
+        super().__init__()
+        if width % 2 != 1:
+            raise ValueError(f"the location convolution's width must be "
+                             f"odd, got {width}")
+        self.query_layer = Linear(query_size, num_units, bias=False)
+        self.location_conv = _ConvKernel(filters, 2, width)
+        self.location_dense = Linear(filters, num_units, bias=False)
+        self.v = Linear(num_units, 1, bias=False)
+
+    def forward(self, query: torch.Tensor, keys: torch.Tensor,
+                previous: torch.Tensor, cumulative: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+        """query [N, Q], keys [N, T, A], previous and cumulative [N, T],
+        valid [N, T] (bool) -> alignments [N, T]."""
+        weight = self.location_conv.weight
+        features = F.conv1d(torch.stack([previous, cumulative], dim=1),
+                            weight, padding=weight.shape[-1] // 2)
+        processed = (self.query_layer(query)[:, None, :]
+                     + self.location_dense(features.transpose(1, 2)) + keys)
+        energies = self.v(torch.tanh(processed))[..., 0]
+        return torch.softmax(
+            energies.masked_fill(~valid, float("-inf")), dim=-1)
 
 
 def initial_alignments(attention_type: str, batch: int, length: int,

@@ -1,4 +1,4 @@
-"""GRU cells and length-aware bidirectional recurrences.
+"""GRU and LSTM cells and length-aware bidirectional recurrences.
 
 Gate conventions follow the TF1 ``GRUCell`` that the reference trained with
 (and that the JAX package keeps), which is not ``torch.nn.GRU``'s:
@@ -18,6 +18,15 @@ JAX's one product over ``[x, h]`` is rounded; the bias is added after that
 rounding, in bfloat16, as JAX's ``Dense`` adds it; the step's elementwise
 math then runs in bfloat16.  In float32 the biases ride in the input
 projections.
+
+The LSTM cells (Tacotron 2, ``models/tacotron2.py``) follow
+``torch.nn.LSTMCell``, as NVIDIA's Tacotron 2 does: the gates
+``W_i x + b_i + W_h h + b_h`` split as (input, forget, cell, output),
+
+    c' = sigmoid(f) * c + sigmoid(i) * tanh(g)
+    h' = sigmoid(o) * tanh(c')
+
+in float32 only.
 """
 
 from __future__ import annotations
@@ -162,3 +171,68 @@ class BiGRU(nn.Module):
         if lengths is None:
             return torch.cat([ys_fw, torch.flip(ys_bw, dims=[1])], dim=-1)
         return torch.cat([ys_fw, reverse_sequence(ys_bw, lengths)], dim=-1)
+
+
+class LSTMCell(nn.Module):
+    """``torch.nn.LSTMCell``'s cell; parameters ``input`` [4H, D] and
+    ``hidden`` [4H, H], Dense layers with biases (``weight_ih``/``bias_ih``
+    and ``weight_hh``/``bias_hh`` there)."""
+
+    def __init__(self, input_size: int, features: int):
+        super().__init__()
+        self.features = features
+        self.input = Linear(input_size, 4 * features)
+        self.hidden = Linear(features, 4 * features)
+
+    def forward(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step: x [N, D], state (h, c) [N, H] -> (h', c')."""
+        return torch.lstm_cell(x, state, self.input.weight,
+                               self.hidden.weight, self.input.bias,
+                               self.hidden.bias)
+
+
+def lstm_gates(gates: torch.Tensor, c: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h', c') from the summed gate pre-activations [..., 4H]."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+class BiLSTM(nn.Module):
+    """Both directions of an LSTM over each row's first ``lengths[i]``
+    steps, as ``pack_padded_sequence`` runs ``torch.nn.LSTM``: each
+    direction starts from zeros, the backward one at the row's last valid
+    step, and the outputs past a row's end are 0.  The input products of
+    a whole sequence are one product per direction; the two directions'
+    carries step together as one batched product a step."""
+
+    def __init__(self, input_size: int, features: int):
+        super().__init__()
+        self.features = features
+        self.fw = LSTMCell(input_size, features)
+        self.bw = LSTMCell(input_size, features)
+
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor
+                ) -> torch.Tensor:
+        """xs [N, T, D], lengths [N] -> [N, T, 2H] (forward, backward)."""
+        N, T, _ = xs.shape
+        H = self.features
+        lengths = lengths.to(xs.device)
+        gx = torch.stack([
+            self.fw.input(xs) + self.fw.hidden.bias,
+            self.bw.input(reverse_sequence(xs, lengths)) + self.bw.hidden.bias,
+        ]).permute(2, 0, 1, 3).contiguous()                  # [T, 2, N, 4H]
+        w = torch.stack([self.fw.hidden.weight.T, self.bw.hidden.weight.T])
+        h = xs.new_zeros((2, N, H))
+        c = xs.new_zeros((2, N, H))
+        ys = []
+        for t in range(T):
+            h, c = lstm_gates(torch.baddbmm(gx[t], h, w), c)
+            ys.append(h)
+        ys = torch.stack(ys, dim=2)                          # [2, N, T, H]
+        mask = (torch.arange(T, device=xs.device)[None, :]
+                < lengths[:, None])[..., None].to(xs.dtype)
+        return torch.cat([ys[0], reverse_sequence(ys[1], lengths)],
+                         dim=-1) * mask

@@ -16,6 +16,16 @@ flax path joined by dots, with these layout rules:
 The decoder's parameters sit once under ``decoder`` (the flax ``nn.scan``
 name), and each BiGRU keeps its ``fw``/``bw`` cells.
 
+Tacotron 2 (``models/tacotron2.py``) has no flax counterpart; its layout is
+these rules over its module tree: Dense kernels [in, out] (the prenet,
+attention and projection layers; each LSTM cell's ``input`` [D, 4H] and
+``hidden`` [H, 4H] with their biases, ``torch.nn.LSTMCell``'s
+``weight_ih``/``weight_hh`` transposed), convolution kernels [width, in,
+out] (``encoder/convs/conv_i``, ``postnet/conv_i``,
+``decoder/attention/location_conv``) and the BatchNorms of ``conv_i_bn``,
+e.g. ``params/decoder/attention_rnn/hidden/kernel`` and
+``batch_stats/postnet/conv_5_bn/BatchNorm_0/var``.
+
 The flat form used by ``.npz`` files keys each array by its ``/``-joined
 path including the collection, e.g. ``params/decoder/prenet/dense_1/kernel``
 and ``batch_stats/encoder_cbhg/bank_bn/BatchNorm_0/mean``.
@@ -168,13 +178,19 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     embeddings truncated normal at each table's stddev, GRU gate biases 1,
     highway transform biases -1, other biases 0, BatchNorm identity.
     Parameters are drawn on the CPU in module order from one generator, so
-    the same seed gives the same weights on every device."""
+    the same seed gives the same weights on every device.  A Tacotron 2
+    takes NVIDIA's initializers instead
+    (``models/tacotron2.py::init_random_``)."""
     from .models.modules import (BatchNorm, Conv1d, ConvBank, Embed,
                                  HighwayNet)
+    from .models.tacotron2 import Tacotron2
+    from .models.tacotron2 import init_random_ as init_tacotron2_
     from .ops.attention import (BahdanauAttention,
                                 BahdanauMonotonicAttention, LuongAttention)
     from .ops.rnn import GRUCell
 
+    if isinstance(model, Tacotron2):
+        return init_tacotron2_(model, seed)
     gen = torch.Generator().manual_seed(seed)
 
     def put(param, value):

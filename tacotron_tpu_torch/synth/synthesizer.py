@@ -19,6 +19,12 @@ the device program as one CUDA graph per (token bucket, decode-step rung,
 chunk size), the counterpart of the JAX package's compiled programs;
 ``synthesize`` replays a captured key.  Sharded synthesis is not ported
 yet.
+
+The model is the one ``ModelConfig.architecture`` names: Tacotron
+(``models/tacotron.py``) or Tacotron 2 (``models/tacotron2.py``), whose
+decode also gives the stop gate's logits; for Tacotron 2 the trim is the
+stop gate's (:func:`gate_trim_frames`) and a call also returns each row's
+stop logits and the moments of its vocoder input.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..config import Config
 from ..dsp import chip as dsp_chip
 from ..dsp import host as dsp_host
 from ..models.tacotron import Tacotron
+from ..models.tacotron2 import Tacotron2
 from ..ops.kernels.stamp import stamp
 from ..params import from_flax, init_random_, load_npz
 from ..text import text_to_sequence
@@ -50,9 +57,23 @@ from ..utils import trace
 from ..utils.graphs import GraphSet, Graphed
 from ..utils.plot import save_alignment_png
 
-# Decode-step bucket ladder for length-adaptive serving (multiples of 50 up
-# to the reference's 200-step decode cap).
+# Decode-step bucket ladder for length-adaptive serving: Tacotron's rungs
+# (multiples of 50 up to the reference's 200-step cap), whatever r is
 STEP_LADDER = (50, 100, 150, 200)
+
+# Tacotron 2's ladder, in frames: at r frames a step, its rungs are these
+# over r (rounded up), to max_iters
+FRAME_LADDER = (200, 400, 600, 800)
+
+
+def step_ladder(model) -> Tuple[int, ...]:
+    """The decode-step rungs of ``model`` (a ``ModelConfig``):
+    :data:`STEP_LADDER` for Tacotron at any r, as the JAX package has it;
+    :data:`FRAME_LADDER` over r for Tacotron 2 (200-800 at r = 1)."""
+    if model.architecture == "tacotron":
+        return STEP_LADDER
+    return tuple(-(-f // model.reduction_factor) for f in FRAME_LADDER)
+
 
 # the unit id of a ``synthesize`` call's spans: its number in the process
 _CALLS = itertools.count()
@@ -79,9 +100,9 @@ def prewarm_step_rungs(cfg, token_buckets: Sequence[int],
                        max_steps: Optional[int] = None) -> dict:
     """Decode-step rungs :meth:`Synthesizer.prewarm` must capture per token
     bucket: exactly the set :func:`adaptive_max_steps` can choose at serving
-    time (same ``cfg.model.steps_per_token``).  Batches land in bucket ``b``
-    only when their longest text exceeds the previous bucket, so rungs
-    reachable only from shorter texts are excluded."""
+    time (same ``cfg.model.steps_per_token`` and ladder).  Batches land in
+    bucket ``b`` only when their longest text exceeds the previous bucket,
+    so rungs reachable only from shorter texts are excluded."""
     buckets = sorted(token_buckets)
     rungs = {}
     for i, bucket in enumerate(buckets):
@@ -91,7 +112,8 @@ def prewarm_step_rungs(cfg, token_buckets: Sequence[int],
         lo = buckets[i - 1] + 1 if i > 0 else 1
         rungs[bucket] = sorted({
             adaptive_max_steps(t, cfg.data.min_iters, cfg.model.max_iters,
-                               steps_per_token=cfg.model.steps_per_token)
+                               steps_per_token=cfg.model.steps_per_token,
+                               ladder=step_ladder(cfg.model))
             for t in range(lo, bucket + 1)})
     return rungs
 
@@ -258,6 +280,24 @@ def attention_trim_frames(alignments: torch.Tensor,
     jdx = torch.where(valid.any(dim=1), first,
                       torch.full_like(first, T_dec - 1))
     return reduction_factor * jdx + 3
+
+
+def gate_trim_frames(stop_logits: torch.Tensor, threshold: float,
+                     reduction_factor: int) -> torch.Tensor:
+    """Per-utterance cut frame [N] from Tacotron 2's stop logits [N, steps]:
+    through the first step whose gate (the logit's sigmoid) exceeds
+    ``threshold``, so at least one step; every step when none does."""
+    over = torch.sigmoid(stop_logits) > threshold
+    first = torch.argmax(over.to(torch.int64), dim=1) + 1
+    steps = torch.where(over.any(dim=1), first,
+                        torch.full_like(first, stop_logits.shape[1]))
+    return reduction_factor * steps
+
+
+def spectrogram_moments(specs: torch.Tensor) -> torch.Tensor:
+    """Each spectrogram's sum and sum of squares: [N, T, F] -> [N, 2]."""
+    return torch.stack([specs.sum(dim=(1, 2)),
+                        (specs * specs).sum(dim=(1, 2))], dim=1)
 
 
 def trim_silence_db(audio: np.ndarray, top_db: float = 50.0,
@@ -469,10 +509,13 @@ class Synthesizer:
 
     # ------------------------------------------------------------------ load
 
-    def _new_model(self, config: Config) -> Tacotron:
+    def _new_model(self, config: Config):
+        """The model ``config.model.architecture`` names."""
         self.config = config
-        return Tacotron(config.model,
-                        vocab_size=vocab_size_for(config.data.symbol_set))
+        vocab = vocab_size_for(config.data.symbol_set)
+        if config.model.architecture == "tacotron2":
+            return Tacotron2(config.model, config.audio, vocab_size=vocab)
+        return Tacotron(config.model, vocab_size=vocab)
 
     def _install(self, model: Tacotron) -> "Synthesizer":
         self.model = model.to(self.device).eval()
@@ -512,36 +555,46 @@ class Synthesizer:
 
     @torch.inference_mode()
     def _forward(self, inputs, input_lengths, speaker_id, manual, is_manual,
-                 max_steps: int) -> Dict[str, torch.Tensor]:
+                 max_steps: int, mark=None) -> Dict[str, torch.Tensor]:
         """The greedy decode alone: ``linear_outputs`` [N, steps*r, F],
         ``mel_outputs`` and ``alignments`` [N, T_in, steps] on the
-        device."""
+        device, and Tacotron 2's ``stop_logits`` [N, steps]; ``mark`` as
+        the models take it."""
         return self.model(inputs, input_lengths, speaker_id=speaker_id,
                           max_steps=max_steps, manual_alignments=manual,
-                          is_manual=is_manual)
+                          is_manual=is_manual, mark=mark)
 
     @torch.inference_mode()
     def _vocode_chunk(self, inputs, input_lengths, speaker_id, manual,
                       is_manual, max_steps: int, trim: bool, fast: bool,
                       wire: str):
-        """Decode -> attention trim -> masked batched Griffin-Lim -> packed
-        waveform (int16 rows + ends row + dB*100 denominator row, or the
-        uint8 mu-law layout).  Returns (packed, alignments, stamps) on the
-        device: ``stamps`` the clock (ns; ``ops/kernels/stamp.py``) in
-        stream order before the decode, after the decode and post-net, and
-        after the pack."""
+        """Decode -> trim -> masked batched Griffin-Lim -> packed waveform
+        (int16 rows + ends row + dB*100 denominator row, or the uint8
+        mu-law layout).  Returns (packed, alignments, stamps) on the
+        device, and for Tacotron 2 also its stop logits [N, steps] and the
+        vocoder input's :func:`spectrogram_moments` [N, 2].  ``stamps`` is
+        the clock (ns; ``ops/kernels/stamp.py``) in stream order before the
+        encoder, after it, after the decoder loop, after the post-net (and
+        Tacotron 2's mel -> linear), and after the pack.  The trim is the
+        attention's (:func:`attention_trim_frames`), or Tacotron 2's stop
+        gate (:func:`gate_trim_frames`)."""
         audio_cfg = (self.fast_audio(self.config.audio) if fast
                      else self.config.audio)
         r = self.config.model.reduction_factor
-        stamps = torch.empty(3, dtype=torch.int64, device=inputs.device)
+        stamps = torch.empty(5, dtype=torch.int64, device=inputs.device)
         stamp(stamps, 0)
         out = self._forward(inputs, input_lengths, speaker_id, manual,
-                            is_manual, max_steps)
-        stamp(stamps, 1)
+                            is_manual, max_steps,
+                            mark=functools.partial(stamp, stamps))
+        stamp(stamps, 3)
         linear = out["linear_outputs"]                 # [N, steps*r, F]
         aligns = out["alignments"]                     # [N, T_in, steps]
+        stop_logits = out.get("stop_logits")           # [N, steps]
         N, n_frames, _ = linear.shape
-        if trim:
+        if trim and stop_logits is not None:
+            ends = gate_trim_frames(stop_logits,
+                                    self.config.model.t2_gate_threshold, r)
+        elif trim:
             ends = torch.clamp(
                 attention_trim_frames(aligns, input_lengths, r),
                 min=r, max=n_frames)
@@ -550,7 +603,8 @@ class Synthesizer:
                               device=linear.device)
         mask = (torch.arange(n_frames, device=linear.device)[None, :]
                 < ends[:, None])[..., None]
-        wavs = dsp_chip.batched_linear_to_waveform(linear * mask, audio_cfg)
+        specs = linear * mask
+        wavs = dsp_chip.batched_linear_to_waveform(specs, audio_cfg)
         # per-utterance peak normalization before quantization
         peak = torch.amax(torch.abs(wavs), dim=1, keepdim=True)
         denom = torch.clamp(peak, min=0.01)
@@ -571,8 +625,11 @@ class Synthesizer:
             extra[0, :n] = ends[:n].to(torch.int16)
             extra[1, :n] = denom_q[:n].to(torch.int16)
             packed = torch.cat([wav_i16, extra], dim=0)
-        stamp(stamps, 2)
-        return packed, aligns, stamps
+        stamp(stamps, 4)
+        if stop_logits is None:
+            return packed, aligns, stamps
+        return (packed, aligns, stamps, stop_logits,
+                spectrogram_moments(specs))
 
     # -------------------------------------------------------------- prewarm
 
@@ -658,7 +715,8 @@ class Synthesizer:
         steps = (max_steps if max_steps is not None else
                  adaptive_max_steps(max(seq_lens), cfg.data.min_iters,
                                     cfg.model.max_iters,
-                                    steps_per_token=cfg.model.steps_per_token))
+                                    steps_per_token=cfg.model.steps_per_token,
+                                    ladder=step_ladder(cfg.model)))
         return _round_up(max(seq_lens), token_bucket), steps
 
     def _chunks(self, n: int) -> List[Tuple[int, int, int]]:
@@ -694,8 +752,12 @@ class Synthesizer:
         path undoes the peak normalization of its wire), ``alignments``
         ([T_in, T_dec] each, cropped to the text), ``linear``,
         ``sequences`` and ``ends`` (the trimmed frame count of each
-        utterance).  ``max_steps=None`` picks the decode budget from the
-        longest text (:func:`adaptive_max_steps`).
+        utterance); for Tacotron 2 also ``stop_logits`` ([steps] each) and
+        ``spec_moments`` (the sum and the sum of squares of each vocoder
+        input spectrogram, two float32s reduced on the device on the chip
+        path), both None for Tacotron.  ``max_steps=None`` picks the decode
+        budget from the longest text (:func:`adaptive_max_steps`, on the
+        rungs of :func:`step_ladder`).
 
         ``vocode``: ``"chip"`` runs the whole chain on the device
         (``linear`` is None: the spectrograms stay there); ``"host"``
@@ -714,7 +776,8 @@ class Synthesizer:
         concurrent calls take turns on the graphs' buffers.
 
         Every call records its phases as spans (``utils/trace.py``; their
-        unit id the call's number in the process): ``synth.call`` around
+        unit id the call's number in the process): ``synth.call`` (attrs
+        ``texts``, ``chunks`` and the model's ``arch``) around
         ``synth.frontend`` (text -> padded ids, budget), and on the chip
         path, per chunk, ``synth.copy_in`` (the padded inputs into a
         graph's static buffers) and ``synth.replay`` (the replay and the
@@ -733,8 +796,12 @@ class Synthesizer:
         launched), ``device_ms`` (the device wait), ``fetch_ms`` (the bulk
         copy), ``post_ms`` (``synth.unpack``) and ``total_ms``, which they
         sum to; ``copy_in_ms`` and ``replay_ms`` (summed over the chunks),
-        ``decode_device_ms`` and ``vocoder_device_ms`` (the device's clock
-        stamps of each chunk, :meth:`_vocode_chunk`, summed), ``chunks``,
+        ``decode_device_ms`` (encoder, decoder loop and post-net) and
+        ``vocoder_device_ms`` (trim, Griffin-Lim and pack), split by the
+        device's clock stamps of each chunk (:meth:`_vocode_chunk`, summed)
+        into ``encoder_device_ms``, ``decoder_device_ms`` and
+        ``postnet_device_ms`` (the post-net and Tacotron 2's mel ->
+        linear), ``chunks``,
         ``chunks_replayed`` and ``chunks_k3`` (the chunks whose vocoder ran
         a spectral-step engine, ``dsp_chip.SPECTRAL_STEP_ENGINES``).
         """
@@ -751,6 +818,7 @@ class Synthesizer:
                                      "only")
                 cfg = self.config
                 dev = self.device
+                call.attrs["arch"] = cfg.model.architecture
                 if sequences is None:
                     sequences = [text_to_sequence(
                         t, self.cleaner_names(),
@@ -817,6 +885,9 @@ class Synthesizer:
             aligns: List[np.ndarray] = []
             all_ends: List[int] = []
             specs: Optional[List[np.ndarray]] = None
+            t2 = cfg.model.architecture == "tacotron2"
+            stops: Optional[List[np.ndarray]] = [] if t2 else None
+            moments: Optional[List[np.ndarray]] = [] if t2 else None
             copies: List[trace.Span] = []
             replays: List[trace.Span] = []
 
@@ -863,10 +934,11 @@ class Synthesizer:
                 with trace.span("synth.fetch") as fetch:
                     with trace.span("synth.device_wait") as device_wait:
                         float(pending[-1][2][0][0, 0])
-                    fetched = [(lo, hi, packed.cpu().numpy(),
-                                al.cpu().numpy() if return_alignments
-                                else None)
-                               for lo, hi, (packed, al, _) in pending]
+                    fetched = [(lo, hi, out[0].cpu().numpy(),
+                                out[1].cpu().numpy() if return_alignments
+                                else None,
+                                [x.cpu().numpy() for x in out[3:]])
+                               for lo, hi, out in pending]
                     stamps = (torch.stack([out[2] for *_, out in pending])
                               .cpu().numpy() if collect_timings else None)
             else:
@@ -877,16 +949,29 @@ class Synthesizer:
                 # [N, bucket, T_dec] and [N, T_dec*r, F]
                 alignments = out["alignments"].cpu().numpy()
                 linear = out["linear_outputs"].cpu().numpy()
+                gate_ends = None
+                if t2:
+                    stops.extend(out["stop_logits"].cpu().numpy())
+                    gate_ends = gate_trim_frames(
+                        out["stop_logits"], cfg.model.t2_gate_threshold,
+                        r).tolist()
                 specs = []
                 for i in range(N):
                     spec = linear[i]
                     align = alignments[i, :seq_lens[i], :]
-                    if attention_trim:
+                    if attention_trim and t2:
+                        spec = spec[:gate_ends[i]]
+                    elif attention_trim:
                         end = attention_trim_index(align, seq_lens[i], r)
                         spec = spec[:max(end, r)]
                     specs.append(spec)
                     aligns.append(align)
                     all_ends.append(len(spec))
+                    if t2:
+                        moments.append(np.array(
+                            [spec.sum(dtype=np.float64),
+                             np.square(spec, dtype=np.float64).sum()],
+                            np.float32))
                 if vocode == "host":
                     wavs = [dsp_host.inv_spectrogram(spec.T, cfg.audio)
                             for spec in specs]
@@ -895,7 +980,10 @@ class Synthesizer:
 
             with trace.span("synth.unpack") as unpack:
                 if vocode == "chip":
-                    for lo, hi, packed, al in fetched:
+                    for lo, hi, packed, al, extra in fetched:
+                        if t2:
+                            stops.extend(extra[0][:hi - lo])
+                            moments.extend(extra[1][:hi - lo])
                         if wire_format == "mulaw8":
                             wav_rows = mulaw_decode(packed[:-4])
                             ends = (packed[-4].astype(np.int32)
@@ -933,9 +1021,14 @@ class Synthesizer:
                         f"or pass max_steps explicitly", stacklevel=2)
 
         result = {"wavs": wavs, "alignments": aligns, "linear": specs,
-                  "sequences": list(sequences), "ends": all_ends}
+                  "sequences": list(sequences), "ends": all_ends,
+                  "stop_logits": stops, "spec_moments": moments}
         if collect_timings and vocode == "chip":
             device_ms = device_wait.ms
+
+            def stamp_ms(a: int, b: int) -> float:
+                return float((stamps[:, b] - stamps[:, a]).sum()) / 1e6
+
             result["timings"] = {
                 "frontend_ms": (frontend.end_ns - call.start_ns) / 1e6,
                 "dispatch_ms": (fetch.start_ns - frontend.end_ns) / 1e6,
@@ -945,10 +1038,11 @@ class Synthesizer:
                 "total_ms": (unpack.end_ns - call.start_ns) / 1e6,
                 "copy_in_ms": sum(s.ms for s in copies),
                 "replay_ms": sum(s.ms for s in replays),
-                "decode_device_ms": float(
-                    (stamps[:, 1] - stamps[:, 0]).sum()) / 1e6,
-                "vocoder_device_ms": float(
-                    (stamps[:, 2] - stamps[:, 1]).sum()) / 1e6,
+                "decode_device_ms": stamp_ms(0, 3),
+                "vocoder_device_ms": stamp_ms(3, 4),
+                "encoder_device_ms": stamp_ms(0, 1),
+                "decoder_device_ms": stamp_ms(1, 2),
+                "postnet_device_ms": stamp_ms(2, 3),
                 "chunks": len(pending),
                 "chunks_replayed": len(replays),
                 "chunks_k3": (len(pending) if engine in

@@ -191,6 +191,11 @@ class TrainStep:
 
     def __init__(self, config, randomly_initialized: bool = True,
                  plan=None):
+        if config.model.architecture != "tacotron":
+            raise ValueError(
+                f"the train step trains Tacotron; architecture "
+                f"{config.model.architecture!r} runs inference only (its "
+                f"losses, teacher forcing and gradients are not ported)")
         self.config = config
         self.plan = plan
         self.shard = None if plan is None else plan.shard

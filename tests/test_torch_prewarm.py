@@ -90,8 +90,10 @@ _STEPS8 = dict(steps_per_token=8.0)
 @pytest.mark.parametrize("buckets", [(32, 64), (32, 64, 96, 128)],
                          ids=["2-buckets", "4-buckets"])
 @pytest.mark.parametrize("model_kw,max_steps", [
-    ({}, None), (_STEPS8, None), (_STEPS8, 100)],
-    ids=["default", "steps-per-token-8", "pinned-max-steps"])
+    ({}, None), (_STEPS8, None), (_STEPS8, 100),
+    (dict(_STEPS8, reduction_factor=2, max_iters=400), None),
+    (dict(_STEPS8, reduction_factor=5, max_iters=160), None)],
+    ids=["default", "steps-per-token-8", "pinned-max-steps", "r2", "r5"])
 def test_prewarm_step_rungs_match_jax(buckets, model_kw, max_steps):
     cfg = Config()
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))

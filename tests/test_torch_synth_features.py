@@ -365,15 +365,20 @@ def test_collect_timings(pair, manual):
     assert set(t) == {"frontend_ms", "dispatch_ms", "device_ms",
                       "fetch_ms", "post_ms", "total_ms", "copy_in_ms",
                       "replay_ms", "decode_device_ms", "vocoder_device_ms",
-                      "chunks", "chunks_replayed", "chunks_k3"}
+                      "encoder_device_ms", "decoder_device_ms",
+                      "postnet_device_ms", "chunks", "chunks_replayed",
+                      "chunks_k3"}
     assert all(v >= 0.0 for v in t.values())
     parts = (t["frontend_ms"] + t["dispatch_ms"] + t["device_ms"]
              + t["fetch_ms"] + t["post_ms"])
     assert abs(parts - t["total_ms"]) < 1.0
     assert t["copy_in_ms"] + t["replay_ms"] <= t["dispatch_ms"] + 1
-    # the CPU's stamps are the host clock around the chunk's two phases
+    # the CPU's stamps are the host clock around the chunk's two phases,
+    # the decode split in three
     assert 0.0 < t["decode_device_ms"] + t["vocoder_device_ms"] \
         <= t["dispatch_ms"]
+    assert t["encoder_device_ms"] + t["decoder_device_ms"] \
+        + t["postnet_device_ms"] == pytest.approx(t["decode_device_ms"])
     assert (t["chunks"], t["chunks_replayed"], t["chunks_k3"]) == (1, 0, 0)
     assert "timings" not in ts.synthesize(texts=TEXTS[:1], max_steps=2,
                                           vocode="none",

@@ -241,11 +241,11 @@ def test_synthesize_spans_and_chunk_routes(rec):
 
     calls = rec.records("synth.call")
     assert len(calls) == 2 and calls[0].unit != calls[1].unit
-    assert calls[1].attrs == {"texts": 1, "chunks": 1}
+    assert calls[1].attrs == {"texts": 1, "chunks": 1, "arch": "tacotron"}
     assert not [r for r in rec.records() if r.unit == calls[1].unit
                 and r.name in ("synth.copy_in", "synth.replay")]
     first = calls[0]
-    assert first.attrs == {"texts": 3, "chunks": 1}
+    assert first.attrs == {"texts": 3, "chunks": 1, "arch": "tacotron"}
     mine = [r for r in rec.records() if r.unit == first.unit
             and r.name != "synth.call"]
     names = _by_name(mine)
@@ -296,8 +296,10 @@ def test_chunk_stamps_are_ordered():
         seqs, torch.ones(2, dtype=torch.int64),
         torch.zeros(2, dtype=torch.int64), None, torch.tensor(False), 4,
         True, True, "int16")
-    s0, s1, s2 = stamps.tolist()
-    assert stamps.dtype == torch.int64 and 0 < s0 <= s1 <= s2
+    # before the encoder, after it, after the decoder loop, after the
+    # post-net, after the pack
+    s0, s1, s2, s3, s4 = stamps.tolist()
+    assert stamps.dtype == torch.int64 and 0 < s0 <= s1 <= s2 <= s3 <= s4
 
 
 def test_train_step_spans_by_route(rec):
