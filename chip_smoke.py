@@ -7,8 +7,9 @@
    off for matmuls and cuDNN convolutions.
 2. Build: compiles every kernel of ``tacotron_tpu_torch/csrc`` with nvcc for
    sm_90a, one process per source, all at once (four libraries; K4's, by
-   far the slowest to compile, is waited for only after phase 4, which
-   does not run it), and prints a ``[sass]`` line counting each library's
+   far the slowest to compile, is waited for only after phase 3's K1-K3
+   checks: phase 4's synthesis runs it), and prints a ``[sass]`` line
+   counting each library's
    wgmma (``HGMMA``), TMA-load (``UTMALDG``), cluster-barrier
    (``UCGABAR``), distributed shared-memory store (``STAS``) and mbarrier
    (``SYNCS``) instructions;
@@ -33,7 +34,8 @@
    sentences at 50 steps with the fast vocoder and
    ``griffin_lim_impl="pallas"`` (the same kernels, call (c)).  The
    kernels' launch counters are zeroed before each call and read after,
-   and the waveforms are checked.  The same weights on the CPU give the
+   and the waveforms are checked; each call's decode runs K4 4 times a
+   chunk (both CBHGs' BiGRUs).  The same weights on the CPU give the
    same 10-step greedy decode as on the card.  (d) The long decodes'
    vocoder (:func:`long_vocoder`): a replayed two-chunk, 200-step call of
    32 texts through the spectral-step engine, its launches at capture and
@@ -52,7 +54,15 @@
    the kernel's autograd Function against autograd through the module.
    Both directions' shapes must be on K4's cluster route; each is timed
    whole, its input projection alone, and its schedule with the products
-   compiled out (``floor_ms``, the latency floor of the T steps).
+   compiled out (``floor_ms``, the latency floor of the T steps).  (b) The
+   route of synthesis (:func:`check_k4_route`): the single-speaker
+   ``Config()`` forward captured at ``single_offline_long``'s chunk (16
+   rows, token bucket 128, 200 steps) holds 4 K4 sequences, and its replay
+   is held against the same forward through the ``BiGRU`` scan; each
+   direction of K4 and each whole BiGRU (``bigru_from_params`` against the
+   module's scan, as one CUDA graph) is timed at the chunk's post-net
+   (T = 800, N = 16, D = H = 256) and encoder (T = 128, N = 16,
+   D = H = 128) shapes; a ``[k4 route]`` line.
 6. Training (the port's training path at full width, on a synthetic
    corpus of 2 speakers x 32 utterances written from a seed by
    ``dsp/host.py``): (a) one train step at batch 4 on the card and on the
@@ -90,7 +100,7 @@
 8. Graphs (``Synthesizer.prewarm``, the app's ``--prewarm``, the train
    driver's ``prewarm``).  A replay launches its kernels without the
    wrappers, so their counters stay at 0 through it (checked) and its
-   K1/K2/K3 launches are counted in a ``torch.profiler`` trace of it, held
+   K1-K4 launches are counted in a ``torch.profiler`` trace of it, held
    against the eager call's counters.  (a) Phase 4's three calls eagerly,
    then each call's key captured (the count ``prewarm_step_rungs`` gives)
    and replayed: the same ends, alignments and waveforms (limit 1e-6 of
@@ -191,7 +201,7 @@
    phase 14) 10 steps more, which resume from the first call's
    checkpoint; both calls exit 0 and write the report's keys; the study's
    held-out evaluation run in this process on the resumed run, each
-   call's K1/K2/K3 launches held to the counts its iterations, ``_budget``
+   call's K1-K4 launches held to the counts its iterations, ``_budget``
    and ``resolve_engine`` give, the kernel that ran held against its
    plain version at each chunk's shape;
    (c) ``token_tone_accuracy`` of ``melody_wav`` itself reads 1.0 with a
@@ -367,6 +377,36 @@ def graphed(fn):
     with torch.cuda.graph(graph):
         fn()
     return graph.replay
+
+
+def span_ms(fn, runs: int = 5) -> float:
+    """Median device time from the start to the end of ``fn()``, the card
+    idle before each run: for a CUDA graph too large to enqueue behind a
+    spin (its launch blocks until the stream drains), so the time includes
+    any wait of the card on the launch."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start, end = _events()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def enqueue_ms(fn, runs: int = 3) -> float:
+    """Median host time of ``fn()``'s call (its launches), the card idle
+    before each."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def bf16_randn(rng, shape, dev) -> torch.Tensor:
@@ -731,9 +771,6 @@ def main_path(dev):
     import dataclasses
 
     from tacotron_tpu_torch.config import Config
-    from tacotron_tpu_torch.ops.kernels.gl_fused import gl_iteration
-    from tacotron_tpu_torch.ops.kernels.griffin_lim import spectral_step
-    from tacotron_tpu_torch.ops.kernels.ola import overlap_add_batched
     from tacotron_tpu_torch.synth import Synthesizer
 
     base = Config()
@@ -745,8 +782,6 @@ def main_path(dev):
         cfg.audio, griffin_lim_impl="pallas"))
     synth_c = Synthesizer(device="cuda").init_random(cfg_c, seed=0)
     sr, hop = cfg.audio.sample_rate, cfg.audio.hop_length
-    counters = {"K1": gl_iteration, "K2": overlap_add_batched,
-                "K3": spectral_step}
     calls = {
         # (a) the serving setting: 4 sentences, 50 steps (200 frames ->
         # fused engine), momentum vocoder
@@ -762,13 +797,12 @@ def main_path(dev):
     }
     launches, results = {}, {}
     for name, (s, kw) in calls.items():
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         res = s.synthesize(librosa_trim=False, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        launches[name] = read_counts()
         audio = check_waveforms(res, hop, f"call ({name})") / sr
         log(f"[main] call ({name}): {len(kw['texts'])} utterances x "
             f"{kw['max_steps']} steps, engine "
@@ -779,8 +813,16 @@ def main_path(dev):
         results.update({f"wall_{name}": wall, f"audio_{name}": audio})
     la, lb, lc = launches["a"], launches["b"], launches["c"]
     require(la["K1"] > 0, "call (a) launched no fused Griffin-Lim kernel")
-    require(lb == {"K1": 0, "K2": 61, "K3": 60},
-            f"call (b) launched {lb}, not K3 60 and K2 61 (one chunk)")
+    require(lb == {"K1": 0, "K2": 61, "K3": 60, "K4": K4_PER_CHUNK},
+            f"call (b) launched {lb}, not K3 60, K2 61 and K4 "
+            f"{K4_PER_CHUNK} (one chunk)")
+    # each chunk's decode runs both BiGRUs on K4 (the encoder's from the
+    # speaker's initial state)
+    for name, (s, kw) in calls.items():
+        want = K4_PER_CHUNK * len(s._chunks(len(kw["texts"])))
+        require(launches[name]["K4"] == want,
+                f"call ({name}) launched K4 {launches[name]['K4']} times, "
+                f"not {want}")
     # one spectral step per iteration and vocoder chunk (4 utterances fit
     # one chunk of 16)
     chunks = -(-len(KOREAN) // Synthesizer.VOCODER_MAX_BATCH)
@@ -888,8 +930,10 @@ def long_vocoder(dev) -> dict:
     (warm-up and capture of the one chunk program) launches K3 60 and K2 61
     times a run; the capture itself proves that K3 and K2 make no
     synchronizing call; a replay allocates nothing; a traced replayed call
-    launches K3 120 and K2 122 times, reports ``chunks_k3`` 2 and its
-    ``synth.replay`` spans carry ``engine``; it equals the eager call, and
+    launches K3 120 and K2 122 times, reports ``chunks_k3`` and
+    ``chunks_k4`` 2 and its ``synth.replay`` spans carry ``engine`` and
+    ``k4`` 4 (the eager call, the warm-up and the capture each launch K4 4
+    times a chunk, and the graph holds 4); it equals the eager call, and
     the route's waveforms on the same decode within the int16 wire's step.
     On that decode the route's spectral convergence lies within
     :data:`CONVERGENCE_SLACK` of matmul_half's (the float32 ``"fft"``
@@ -915,7 +959,7 @@ def long_vocoder(dev) -> dict:
     require(dsp_chip.resolve_engine(cfg.audio, frames, dev)
             == "pallas_half",
             f"{frames} frames do not reach the spectral-step engine")
-    per_run = {"K1": 0, "K2": iters + 1, "K3": iters}
+    per_run = {"K1": 0, "K2": iters + 1, "K3": iters, "K4": K4_PER_CHUNK}
     linear = []
     hook = synth.model.register_forward_hook(
         lambda m, a, o: linear.append(o["linear_outputs"].clone()))
@@ -937,6 +981,8 @@ def long_vocoder(dev) -> dict:
             f"(d) the capture launched {captured}, not {per_run} in its "
             f"warm-up and again in its capture")
     (graph,) = synth._graphs.values()
+    require(graph.launches == {"k4": per_run["K4"]},
+            f"(d) the chunk's graph holds {graph.launches} K4 sequences")
     allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     graph.replay()
     torch.cuda.synchronize()
@@ -950,9 +996,11 @@ def long_vocoder(dev) -> dict:
     require(counts == {k: 2 * v for k, v in per_run.items()},
             f"(d) the replayed call launched {counts} in its trace")
     t = res["timings"]
-    require(t["chunks"] == t["chunks_replayed"] == t["chunks_k3"] == 2
+    require(t["chunks"] == t["chunks_replayed"] == t["chunks_k3"]
+            == t["chunks_k4"] == 2
             and [r.attrs.get("engine") for r in replays]
-            == ["pallas_half"] * 2,
+            == ["pallas_half"] * 2
+            and [r.attrs.get("k4") for r in replays] == [per_run["K4"]] * 2,
             f"(d) timings {t}, replay spans "
             f"{[r.attrs for r in replays]}")
     require(all(np.array_equal(a, b)
@@ -1061,7 +1109,8 @@ def capture_bigru_inputs(dev, synth) -> dict:
 
     def hook(name):
         def fn(module, args, kwargs, output):
-            inputs = list(args) + [None] * (3 - len(args))
+            inputs = [None if a is None else a.detach()
+                      for a in list(args) + [None] * (3 - len(args))]
             captured[name] = (module, inputs, output.detach().clone())
         return fn
 
@@ -1069,7 +1118,9 @@ def capture_bigru_inputs(dev, synth) -> dict:
                    hook("encoder"), with_kwargs=True),
                model.post_cbhg.bigru.register_forward_hook(
                    hook("post-net"), with_kwargs=True)]
-    with torch.no_grad():
+    # with gradients on, the CBHGs run the module's scan (without them,
+    # K4: models/modules.py)
+    with torch.enable_grad():
         model(torch.from_numpy(ids).to(dev),
               torch.tensor([len(q) for q in seqs], device=dev),
               speaker_id=torch.tensor([0, 1, 0, 1], device=dev),
@@ -1199,6 +1250,114 @@ def check_k4(dev, synth, rng):
                       f"per step), measured on this card",
         "flops": flops, "bytes": nbytes, "launches": launches,
     }
+
+
+#: ``single_offline_long``'s chunk: rows, token bucket, decode steps
+ROUTE_CHUNK = (16, 128, 200)
+
+
+def check_k4_route(dev) -> dict:
+    """Phase 5 (b): K4 on the synthesis path.  The single-speaker
+    ``Config()`` forward at :data:`ROUTE_CHUNK` (token counts 42-128 from a
+    seed) is captured with K4's launches counted (4: the encoder's and the
+    post-net's BiGRU, two directions each), replayed, and held against the
+    same weights and inputs through the ``BiGRU`` scan (the forward with
+    gradients on).  Then, at the chunk's post-net and encoder shapes, one
+    direction of K4 alone and each whole BiGRU, ``bigru_from_params``
+    against the module's scan, each replayed as one CUDA graph."""
+    import functools
+
+    from tacotron_tpu_torch.config import Config
+    from tacotron_tpu_torch.ops.kernels import gru
+    from tacotron_tpu_torch.synth import Synthesizer
+    from tacotron_tpu_torch.utils.graphs import GraphSet
+
+    N, bucket, steps = ROUTE_CHUNK
+    synth = Synthesizer(device="cuda").init_random(Config(), seed=0)
+    model = synth.model
+    rng = np.random.default_rng(20)
+    lengths = rng.integers(bucket // 3, bucket + 1, N)
+    vocab = model.char_embedding.embedding.shape[0]
+    ids = np.zeros((N, bucket), np.int64)
+    for i, n in enumerate(lengths):
+        ids[i, :n] = rng.integers(1, vocab, n)
+    args = (torch.from_numpy(ids), torch.from_numpy(lengths), None, None,
+            torch.tensor(False))
+    graph = GraphSet(dev, owner="k4_route").capture(
+        functools.partial(synth._forward, max_steps=steps), *args,
+        counters={"k4": gru.gru_sequence})
+    require(graph.launches == {"k4": 4},
+            f"(b) the captured forward holds {graph.launches} K4 sequences, "
+            f"not 4")
+    got = graph.replay()
+    forward_ms = span_ms(graph.replay)
+    forward_enqueue_ms = enqueue_ms(graph.replay)
+    ins = [None if a is None else a.to(dev) for a in args]
+    with torch.enable_grad():
+        want = model(ins[0], ins[1], max_steps=steps, is_manual=ins[4])
+    gaps = {}
+    for name in ("alignments", "mel_outputs", "linear_outputs"):
+        gaps[name] = rel_err(got[name], want[name].detach())[1]
+        require(gaps[name] <= 1e-3,
+                f"(b) the K4 route's {name} against the BiGRU scan's: rel "
+                f"{gaps[name]:.3e}")
+    del want
+
+    def shape_times(name, mod, T, with_lengths):
+        D, H = mod.fw.input_size, mod.features
+        x = torch.from_numpy(rng.uniform(-1.0, 1.0, (N, T, D)).astype(
+            np.float32)).to(dev)
+        lens = (torch.from_numpy(rng.integers(T // 3, T + 1, N)).to(dev)
+                if with_lengths else None)
+        mask = (torch.ones((T, N), device=dev) if lens is None else
+                (torch.arange(T, device=dev)[:, None]
+                 < lens[None]).float())
+        cell = mod.fw
+        direction = [x.transpose(0, 1).contiguous(),
+                     torch.zeros((N, H), device=dev),
+                     cell.gates.weight.detach().t().contiguous(),
+                     cell.gates.bias.detach(),
+                     cell.candidate.weight.detach().t().contiguous(),
+                     cell.candidate.bias.detach(), mask]
+        with torch.no_grad():
+            k4_graph = graphed(lambda: gru.bigru_from_params(mod, x, lens))
+            scan_graph = graphed(lambda: mod(x, lens))
+            t = {"shape": f"T={T} N={N} D={D} H={H}",
+                 "direction_ms": time_ms(
+                     lambda: gru.gru_sequence(*direction)),
+                 "bigru_k4_ms": time_ms(k4_graph),
+                 "bigru_scan_ms": span_ms(scan_graph),
+                 "bigru_k4_enqueue_ms": enqueue_ms(k4_graph),
+                 "bigru_scan_enqueue_ms": enqueue_ms(scan_graph)}
+            gap = rel_err(gru.bigru_from_params(mod, x, lens),
+                          mod(x, lens))[0]
+        require(gap <= 1e-4, f"(b) K4 at the {name} shape: {gap:.3e}")
+        t["max_abs_err"] = gap
+        return t
+
+    log(f"[k4 route] the forward at {N} rows, bucket {bucket}, {steps} "
+        f"steps, captured: {graph.launches['k4']} K4 sequences; replay "
+        f"{forward_ms:.3f} ms start to end, {forward_enqueue_ms:.3f} ms of "
+        f"host time to launch; against the BiGRU scan (rel to the peak): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    shapes = {"post-net": shape_times("post-net", model.post_cbhg.bigru,
+                                      steps * model.cfg.reduction_factor,
+                                      False),
+              "encoder": shape_times("encoder", model.encoder_cbhg.bigru,
+                                     bucket, True)}
+    log("[k4 route] " + "; ".join(
+        f"{k} {v['shape']}: direction {v['direction_ms']:.4f} ms, BiGRU "
+        f"{v['bigru_k4_ms']:.4f} ms against the scan's "
+        f"{v['bigru_scan_ms']:.4f} ms start to end (one CUDA graph each; "
+        f"launched in {v['bigru_k4_enqueue_ms']:.3f} / "
+        f"{v['bigru_scan_enqueue_ms']:.3f} ms of host time), max abs err "
+        f"{v['max_abs_err']:.3e}" for k, v in shapes.items())
+        + f" on {card_line()}")
+    return {"chunk": {"rows": N, "bucket": bucket, "steps": steps},
+            "launches_at_capture": graph.launches["k4"],
+            "forward_replay_ms": forward_ms,
+            "forward_enqueue_ms": forward_enqueue_ms, "rel_gaps": gaps,
+            "shapes": shapes}
 
 
 # ---------------------------------------------------------------- training
@@ -1436,12 +1595,32 @@ def train_phase(dev, tmp: str) -> dict:
 SHORT = ["안녕", "좋아요", "반가워요", "고마워요", "잘 자요"]
 
 
+#: K4 sequences a float32 Tacotron chunk's decode launches without a
+#: gradient: the encoder's and the post-net's BiGRU, two directions each
+K4_PER_CHUNK = 4
+
+
+def k4_launches(config, chunks: int) -> int:
+    """K4's launches over ``chunks`` chunks of a Tacotron decode: none for
+    a bfloat16 model, whose carry keeps BiGRU's scan."""
+    return K4_PER_CHUNK * chunks \
+        if config.model.compute_dtype == "float32" else 0
+
+
 def kernel_counters() -> dict:
+    """The launch-counting wrappers of K1-K4, by kernel."""
     from tacotron_tpu_torch.ops.kernels.gl_fused import gl_iteration
     from tacotron_tpu_torch.ops.kernels.griffin_lim import spectral_step
+    from tacotron_tpu_torch.ops.kernels.gru import gru_sequence
     from tacotron_tpu_torch.ops.kernels.ola import overlap_add_batched
     return {"K1": gl_iteration, "K2": overlap_add_batched,
-            "K3": spectral_step}
+            "K3": spectral_step, "K4": gru_sequence}
+
+
+def vocoder_counts(counts: dict) -> dict:
+    """``counts`` without K4: the vocoder's kernels, K1-K3, which
+    :func:`engine_launches` and the benchmark's record derive."""
+    return {k: v for k, v in counts.items() if k != "K4"}
 
 
 def zero_counts() -> None:
@@ -1706,7 +1885,8 @@ def serve_phase(dev, synth, trained: dict, tmp: str) -> dict:
         zero_counts()
         results[vocode], serve[f"{vocode}_s"] = timed(
             lambda: synth.synthesize(vocode=vocode, **kw2))
-        require(read_counts() == {"K1": 0, "K2": 0, "K3": 0},
+        require(read_counts() == {"K1": 0, "K2": 0, "K3": 0,
+                                  "K4": K4_PER_CHUNK},
                 f"(d) vocode={vocode} launched {read_counts()}")
         require(results[vocode]["ends"] == chip["ends"],
                 f"(d) vocode={vocode} ends {results[vocode]['ends']} != "
@@ -1802,11 +1982,13 @@ def median_wall(fn, n: int = 3):
 #: kernels (cast, forward and inverse product), counted by its forward one
 TRACE_GROUPS = {"K1": ("gl_frame_uv", "gl_dft_project", "gl_idft_window",
                        "gl_ola_norm"),
-                "K2": ("ola_centered",), "K3": ("gl_spectral_dft",)}
+                "K2": ("ola_centered",), "K3": ("gl_spectral_dft",),
+                # one projection a K4 sequence, beside its recurrence
+                "K4": ("gru_input_proj",)}
 
 
 def trace_counts(summary: dict) -> dict:
-    """K1/K2/K3 launches in a trace summary (``TraceWindow.stop``): what a
+    """K1-K4 launches in a trace summary (``TraceWindow.stop``): what a
     graph's replay launched, which the wrappers' counters do not see."""
     by = summary["device_launches_by_group"]
     k3 = [by.get(g, 0) for g in ("gl_spectral_cast", "gl_spectral_dft",
@@ -2478,12 +2660,14 @@ def parallel_phase(dev, main: dict, trained: dict, tmp: str) -> dict:
                 f"(c) {name}: waveforms {err} of the peak, alignments {al}")
             synth_out[name] = dict(counts=counts, wall_s=wall, err=err)
         iters = synth.config.audio.griffin_lim_iters
-        require(not any(synth_out["default"]["counts"].values()),
-                f"(c) default engines launched {synth_out['default']}")
+        # one decode of the 4 rows: both BiGRUs on K4
+        require(synth_out["default"]["counts"] == {
+            "K1": 0, "K2": 0, "K3": 0, "K4": K4_PER_CHUNK},
+            f"(c) default engines launched {synth_out['default']}")
         require(synth_out["pallas"]["counts"] == {
-            "K1": 0, "K2": iters + 1, "K3": iters},
+            "K1": 0, "K2": iters + 1, "K3": iters, "K4": K4_PER_CHUNK},
             f"(c) pallas engines launched {synth_out['pallas']['counts']}, "
-            f"not K3 {iters} and K2 {iters + 1}")
+            f"not K3 {iters}, K2 {iters + 1} and K4 {K4_PER_CHUNK}")
         fused = synth.config.replace(audio=dataclasses.replace(
             synth.config.audio, griffin_lim_impl="fused"))
         try:
@@ -2955,6 +3139,7 @@ def corpus_phase(dev, tmp: str) -> dict:
         want = engine_launches(synth.config.audio, steps * r, iters,
                                len(synth._chunks(n)))
         fused = want["K1"] > 0
+        want["K4"] = k4_launches(synth.config, len(synth._chunks(n)))
         require(counts == want, f"(e) {name}: launches {counts}, derived "
                                 f"{want} ({steps} steps, fused {fused})")
         check_waveforms(res, synth.config.audio.hop_length, f"(e) {name}")
@@ -3091,8 +3276,9 @@ def bf16_serving(dev, main: dict, graphs: dict) -> dict:
     cfg_bf = bf16_config(main["synth"].config)
     synth = Synthesizer(device=dev).init_random(cfg_bf, seed=0)
     hop = cfg_bf.audio.hop_length
-    expect = {"a": {"K1": 120, "K2": 0, "K3": 0},
-              "b": {"K1": 0, "K2": 61, "K3": 60}}
+    # a bfloat16 carry keeps BiGRU's scan: no K4
+    expect = {"a": {"K1": 120, "K2": 0, "K3": 0, "K4": 0},
+              "b": {"K1": 0, "K2": 61, "K3": 60, "K4": 0}}
     out = {}
     for name in ("a", "b"):
         kw = dict(main["calls"][name][1], librosa_trim=False)
@@ -3470,7 +3656,7 @@ def study_report(art: str) -> dict:
 
 def study_launches(dev, run: str, heldout, rng) -> dict:
     """(b) The study's held-out evaluation in this process on the run the
-    CLI trained, each ``synthesize`` call's K1/K2/K3 launches held to the
+    CLI trained, each ``synthesize`` call's K1-K4 launches held to the
     counts its iterations, ``_budget`` and ``resolve_engine`` give, and
     the kernel that ran against its plain version at each chunk's
     shape."""
@@ -3513,6 +3699,7 @@ def study_launches(dev, run: str, heldout, rng) -> dict:
         chunks = synth._chunks(len(kw["texts"]))
         want = engine_launches(audio, steps * r, iters, len(chunks))
         fused = want["K1"] > 0
+        want["K4"] = k4_launches(synth.config, len(chunks))
         require(counts == want, f"(b) evaluation call ({len(seqs)} texts, "
                 f"fast {fast}): launches {counts}, derived {want} ({steps} "
                 f"steps, fused {fused})")
@@ -4009,7 +4196,7 @@ def bench_phase(dev) -> dict:
     # a capture's warm-up and capture run through the wrappers: their
     # launches are counted apart
     harness_capture, in_captures = bench._Harness.capture, dict.fromkeys(
-        ("K1", "K2", "K3"), 0)
+        kernel_counters(), 0)
 
     def capture(self, fn):
         before = read_counts()
@@ -4027,7 +4214,8 @@ def bench_phase(dev) -> dict:
     finally:
         serving_load.run_load_test = run_load_test
         bench._Harness.capture = harness_capture
-    counted = {k: v - in_captures[k] for k, v in read_counts().items()}
+    counted = vocoder_counts({k: v - in_captures[k]
+                              for k, v in read_counts().items()})
     wall = time.perf_counter() - t_phase
     detail = record["detail"]
 
@@ -4144,23 +4332,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    # K4's library takes ~8x the others' compile time and nothing before
-    # its checks runs it: its nvcc runs beside K1-K3's checks and phase 4
+    # K4's library takes ~8x the others' compile time: its nvcc runs beside
+    # K1-K3's checks, and phase 4's synthesis (which runs K4) waits for it
     pool = concurrent.futures.ThreadPoolExecutor(1)
     gru_build = pool.submit(_build.build, ["gru"])
     built = _build.build([n for n in _build.SOURCES if n != "gru"])
     rng = np.random.default_rng(0)
     kernels = [check_k1(dev, rng), check_k2(dev, rng), check_k3(dev, rng)]
+    built.update(gru_build.result())
+    pool.shutdown()
+    log(f"[build] {time.perf_counter() - t0:.1f} s to K4's library, K1-K3's "
+        f"checks beside it "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
     main = main_path(dev)
     for k, name in zip(kernels, ("K1", "K2", "K3")):
         k["launches"] = sum(c[name] for c in main["launches"].values())
         k["launches_by_call"] = {c: v[name]
                                  for c, v in main["launches"].items()}
-    built.update(gru_build.result())
-    pool.shutdown()
-    log(f"[build] {time.perf_counter() - t0:.1f} s to K4's library, phase "
-        f"4 beside it "
-        f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -4177,6 +4365,11 @@ def main() -> int:
     log(f"[kernel] {check_edge_shapes(dev, rng)} ragged shapes agree with "
         f"the plain versions")
     kernels.append(check_k4(dev, main["synth"], rng))
+    kernels[3]["launches_check"] = kernels[3]["launches"]
+    kernels[3]["launches"] = sum(c["K4"] for c in main["launches"].values())
+    kernels[3]["launches_by_call"] = {c: v["K4"]
+                                      for c, v in main["launches"].items()}
+    kernels[3]["synthesis"] = check_k4_route(dev)
     stamp("phases 1-5")
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_phase(dev, tmp)

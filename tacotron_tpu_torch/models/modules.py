@@ -25,6 +25,11 @@ the convolutions transpose to [N, C, T] around ``F.conv1d``.
   one program does: BatchNorm's statistics are sums over every rank's rows,
   and dropout draws the global batch's mask and keeps this rank's rows, so
   N ranks compute what one process computes on their rows concatenated.
+- The CBHG's bidirectional GRU runs each direction's whole recurrence as
+  one ``ops/kernels/gru.py::gru_sequence`` (K4 on the card, its plain scan
+  on the CPU) where the call needs no gradient and the carry is float32:
+  synthesis and evaluation.  Training (the gradient) and a bfloat16 carry
+  (``BiGRU``'s per-step rounding) keep ``ops/rnn.py::BiGRU``'s scan.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cast import Linear, cast, conv1d
+from ..ops.kernels.gru import bigru_from_params
 from ..ops.rnn import BiGRU
 
 
@@ -268,6 +274,10 @@ class CBHG(nn.Module):
             highway_input = self.highway_dim_fix(highway_input)
         for idx in range(self.highway_depth):
             highway_input = getattr(self, f"highway_{idx + 1}")(highway_input)
+        carry = highway_input if rnn_init_state is None else rnn_init_state
+        if not torch.is_grad_enabled() and carry.dtype == torch.float32:
+            return bigru_from_params(self.bigru, highway_input.float(),
+                                     lengths, rnn_init_state)
         return self.bigru(highway_input, lengths, rnn_init_state)
 
 

@@ -29,9 +29,10 @@ thread-block cluster holding the recurrent weights in shared memory, or,
 above H = 512, one block per row streaming them from L2), and runs
 :func:`gru_reference_scan` for CPU tensors; its
 backward recomputes through :func:`gru_reference_scan` under autograd, as
-the JAX package's ``custom_vjp`` does.  The model's CBHG keeps
-``ops/rnn.py::BiGRU``; :func:`bigru_from_params` is the opt-in entry point
-that runs a ``BiGRU``'s weights through the kernel.
+the JAX package's ``custom_vjp`` does.  :func:`bigru_from_params` runs a
+``BiGRU``'s weights through it; the model's CBHG calls it where no gradient
+is needed and the carry is float32 (``models/modules.py``), and keeps
+``ops/rnn.py::BiGRU`` otherwise.
 """
 
 from __future__ import annotations

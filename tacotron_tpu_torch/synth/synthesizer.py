@@ -49,6 +49,7 @@ from ..dsp import chip as dsp_chip
 from ..dsp import host as dsp_host
 from ..models.tacotron import Tacotron
 from ..models.tacotron2 import Tacotron2
+from ..ops.kernels.gru import gru_sequence
 from ..ops.kernels.stamp import stamp
 from ..params import from_flax, init_random_, load_npz
 from ..text import text_to_sequence
@@ -683,7 +684,8 @@ class Synthesizer:
                             torch.ones((nb,), dtype=torch.int64),
                             (torch.zeros((nb,), dtype=torch.int64)
                              if spk_on else None),
-                            None, torch.tensor(False))
+                            None, torch.tensor(False),
+                            counters={"k4": gru_sequence})
                     n += 1
         return n
 
@@ -788,7 +790,8 @@ class Synthesizer:
         ``synth.copy_in`` and ``synth.replay`` ran eagerly: a capture miss.
         ``synth.replay`` carries the chunk's Griffin-Lim engine
         (``engine``, as :func:`~tacotron_tpu_torch.dsp.chip.resolve_engine`
-        names it).
+        names it) and ``k4``, the GRU sequences the graph runs through
+        ``gru_sequence``'s kernel (K4; counted at the capture).
 
         ``collect_timings=True`` (chip path) adds ``timings``, from those
         spans: the phases ``frontend_ms``, ``dispatch_ms`` (the device
@@ -802,8 +805,13 @@ class Synthesizer:
         into ``encoder_device_ms``, ``decoder_device_ms`` and
         ``postnet_device_ms`` (the post-net and Tacotron 2's mel ->
         linear), ``chunks``,
-        ``chunks_replayed`` and ``chunks_k3`` (the chunks whose vocoder ran
-        a spectral-step engine, ``dsp_chip.SPECTRAL_STEP_ENGINES``).
+        ``chunks_replayed``, ``chunks_k3`` (the chunks whose vocoder ran
+        a spectral-step engine, ``dsp_chip.SPECTRAL_STEP_ENGINES``) and
+        ``chunks_k4`` (the chunks whose decode ran K4: a replay's ``k4``,
+        an eager chunk's launches counted around it).  ``gru_sequence``'s
+        counter is the process's: an eager chunk's count is exact while no
+        other thread's call launches K4 beside it, and a replay's ``k4`` is
+        fixed at the capture, which runs alone (:meth:`prewarm`).
         """
         if self.model is None:
             raise RuntimeError("call init_random() or load_variables() first")
@@ -898,6 +906,7 @@ class Synthesizer:
                     return torch.from_numpy(out)
 
                 pending = []
+                k4_chunks = 0
                 chunks = self._chunks(N)
                 call.attrs["chunks"] = len(chunks)
                 # the fast vocoder changes no field the route reads
@@ -915,21 +924,27 @@ class Synthesizer:
                            wire_format, nb)
                     graphed = self._graphs.get(key)
                     if graphed is None:
+                        # the process's counter: another thread's eager
+                        # chunk at the same time adds its launches here
+                        k4 = gru_sequence.launches
                         out = self._vocode_chunk(
                             *(None if a is None else a.to(dev)
                               for a in args),
                             steps, attention_trim, fast_vocoder, wire_format)
+                        k4 = gru_sequence.launches - k4
                     else:
+                        k4 = graphed.launches["k4"]
                         # the next replay overwrites the graph's outputs
                         with self._graph_lock:
                             with trace.span("synth.copy_in") as copy_in:
                                 graphed.copy_in(*args)
-                            with trace.span("synth.replay",
-                                            engine=engine) as replay:
+                            with trace.span("synth.replay", engine=engine,
+                                            k4=k4) as replay:
                                 out = tuple(t.clone()
                                             for t in graphed.replay())
                         copies.append(copy_in)
                         replays.append(replay)
+                    k4_chunks += k4 > 0
                     pending.append((lo, hi, out))
                 with trace.span("synth.fetch") as fetch:
                     with trace.span("synth.device_wait") as device_wait:
@@ -1047,6 +1062,7 @@ class Synthesizer:
                 "chunks_replayed": len(replays),
                 "chunks_k3": (len(pending) if engine in
                               dsp_chip.SPECTRAL_STEP_ENGINES else 0),
+                "chunks_k4": k4_chunks,
             }
         return result
 

@@ -33,7 +33,9 @@ tensor the function reads or updates in place, must outlive it unmoved.
 
 The kernel wrappers count the launches they make (``launches``); a replay
 launches the captured kernels without them, so those counts do not see
-replays.  A replay's kernels are counted in a trace of it.
+replays.  A replay's kernels are counted in a trace of it, or read from
+:attr:`Graphed.launches`: the launches of the wrappers a capture was given
+(``counters``) during the captured call.
 
 On the CPU the same bookkeeping holds without a graph: the warm-up runs
 on the static buffers and its outputs become the static outputs; a call
@@ -48,7 +50,8 @@ Each capture (warm-up and capture) is a ``graph.capture`` span of
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -88,15 +91,19 @@ def arg_key(args: Sequence[Optional[torch.Tensor]]) -> Tuple:
 
 class Graphed:
     """One function captured on static buffers (``graph``), or on the CPU
-    called on them (``fn``, None on CUDA).  ``replays`` counts the calls."""
+    called on them (``fn``, None on CUDA).  ``replays`` counts the calls;
+    ``launches`` holds, by name, the launches each counted kernel wrapper
+    made in the captured call, which every replay makes again."""
 
     def __init__(self, inputs: List[Optional[torch.Tensor]], outputs: Any,
-                 graph=None, fn: Optional[Callable] = None):
+                 graph=None, fn: Optional[Callable] = None,
+                 launches: Optional[Dict[str, int]] = None):
         self.inputs = inputs
         self.key = arg_key(inputs)
         self.outputs = outputs
         self.graph = graph
         self.fn = fn
+        self.launches = launches or {}
         self.replays = 0
 
     def __call__(self, *args: Optional[torch.Tensor]) -> Any:
@@ -137,19 +144,33 @@ class GraphSet:
         self.stream = torch.cuda.Stream(self.device) if cuda else None
 
     def capture(self, fn: Callable, *args: Optional[torch.Tensor],
-                generators: Sequence[torch.Generator] = ()) -> Graphed:
+                generators: Sequence[torch.Generator] = (),
+                counters: Optional[Mapping[str, Any]] = None) -> Graphed:
         """``fn(*args)`` warmed up and captured on static copies of
-        ``args``; see the module docstring."""
+        ``args``; see the module docstring.  ``counters`` names kernel
+        wrappers whose ``launches`` the captured call (on the CPU, the one
+        call) adds to :attr:`Graphed.launches`; they are the process's
+        counters, exact while no other thread launches those kernels."""
         with trace.span("graph.capture", owner=self.owner,
                         key=arg_key(args)):
-            return self._capture(fn, args, generators)
+            return self._capture(fn, args, generators, counters or {})
 
     def _capture(self, fn: Callable, args: Sequence[Optional[torch.Tensor]],
-                 generators: Sequence[torch.Generator]) -> Graphed:
+                 generators: Sequence[torch.Generator],
+                 counters: Mapping[str, Any]) -> Graphed:
         inputs = [None if a is None else
                   a.detach().to(self.device, copy=True) for a in args]
+
+        def counted(call: Callable) -> Tuple[Any, Dict[str, int]]:
+            before = {k: c.launches for k, c in counters.items()}
+            out = call()
+            return out, {k: c.launches - before[k]
+                         for k, c in counters.items()}
+
         if self.device.type != "cuda":
-            return Graphed(inputs, _map(torch.clone, fn(*inputs)), fn=fn)
+            outputs, launches = counted(lambda: fn(*inputs))
+            return Graphed(inputs, _map(torch.clone, outputs), fn=fn,
+                           launches=launches)
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
@@ -165,7 +186,7 @@ class GraphSet:
         with torch.cuda.stream(self.stream):
             graph.capture_begin(pool=self.pool)
             try:
-                outputs = fn(*inputs)
+                outputs, launches = counted(lambda: fn(*inputs))
             finally:
                 graph.capture_end()
-        return Graphed(inputs, outputs, graph)
+        return Graphed(inputs, outputs, graph, launches=launches)

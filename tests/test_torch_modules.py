@@ -137,12 +137,24 @@ def test_max_pool_same(width):
                                                          width))
 
 
-@pytest.mark.parametrize("rnn_size,lengths,speaker", [
-    (10, [11, 6], False), (8, [11, 11], True), (10, None, False)],
-    ids=["encoder", "dim_fix+speaker", "postnet"])
-def test_cbhg(rnn_size, lengths, speaker):
+CBHG_CASES = {"encoder": (10, [11, 6], False),
+              "dim_fix+speaker": (8, [11, 11], True),
+              "postnet": (10, None, False)}
+# with gradients on the CBHG runs BiGRU's scan; without them (synthesis
+# under inference_mode, evaluation under no_grad) bigru_from_params
+GRAD_MODES = {"grad": torch.enable_grad,
+              "inference_mode": torch.inference_mode,
+              "no_grad": torch.no_grad}
+
+
+@pytest.mark.parametrize("rnn_size,lengths,speaker,mode", [
+    (*case, mode) for mode in GRAD_MODES for case in CBHG_CASES.values()],
+    ids=[name if mode == "grad" else f"{name}-{mode}"
+         for mode in GRAD_MODES for name in CBHG_CASES])
+def test_cbhg(rnn_size, lengths, speaker, mode):
     """CBHG in inference (running statistics), with the highway dim fix,
-    the speaker bias and the BiGRU initial state."""
+    the speaker bias and the BiGRU initial state, through either route of
+    its BiGRU."""
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, 11, 10)).astype(np.float32)
     lens = None if lengths is None else np.asarray(lengths, np.int32)
@@ -154,6 +166,7 @@ def test_cbhg(rnn_size, lengths, speaker):
     v, mod = carry(flax_mod, tm.CBHG(10, *args), x, lens, True, bh, init,
                    seed=9)
     want = flax_mod.apply(v, x, lens, False, bh, init)
-    got = mod(t(x), None if lens is None else t(lens).long(), t(bh),
-              t(init))
+    with GRAD_MODES[mode]():
+        got = mod(t(x), None if lens is None else t(lens).long(), t(bh),
+                  t(init))
     close(got, want)

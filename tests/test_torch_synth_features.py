@@ -367,7 +367,7 @@ def test_collect_timings(pair, manual):
                       "replay_ms", "decode_device_ms", "vocoder_device_ms",
                       "encoder_device_ms", "decoder_device_ms",
                       "postnet_device_ms", "chunks", "chunks_replayed",
-                      "chunks_k3"}
+                      "chunks_k3", "chunks_k4"}
     assert all(v >= 0.0 for v in t.values())
     parts = (t["frontend_ms"] + t["dispatch_ms"] + t["device_ms"]
              + t["fetch_ms"] + t["post_ms"])
@@ -379,7 +379,9 @@ def test_collect_timings(pair, manual):
         <= t["dispatch_ms"]
     assert t["encoder_device_ms"] + t["decoder_device_ms"] \
         + t["postnet_device_ms"] == pytest.approx(t["decode_device_ms"])
-    assert (t["chunks"], t["chunks_replayed"], t["chunks_k3"]) == (1, 0, 0)
+    # the CPU launches no kernel: K3 and K4 count 0
+    assert (t["chunks"], t["chunks_replayed"], t["chunks_k3"],
+            t["chunks_k4"]) == (1, 0, 0, 0)
     assert "timings" not in ts.synthesize(texts=TEXTS[:1], max_steps=2,
                                           vocode="none",
                                           collect_timings=True)
